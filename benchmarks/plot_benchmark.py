@@ -3,8 +3,9 @@
 Figure families:
   1. fast engine vs naive oracle over P (log-log)         -> *_vs_naive.png
   2. all preprocessing combinations over P                -> *_combos.png
-  3. fold-phase achieved GB/s vs the HBM roofline over P  -> *_roofline.png
-     (TPU-native; no reference equivalent)
+  3. fold-phase achieved GB/s over P (with a bandwidth line when one is
+     given)                                               -> *_roofline.png
+     (no reference equivalent)
   4. JIT-mode comparison (nojit / coldjit / warmjit) over P -> *_jit_modes.png
      (counterpart of the reference's jit-mode figure family,
      ref ``benchmarks/plot_benchmark.py:308-407``)
@@ -127,7 +128,7 @@ def plot_combos(df, out):
     print("wrote", out)
 
 
-def plot_roofline(df, out, hbm_gbps=819.0):
+def plot_roofline(df, out, hbm_gbps=None):
     fast = df[df.model.str.startswith("CVMatrix") & df.gbps.notna()]
     if fast.empty:
         return
@@ -136,7 +137,8 @@ def plot_roofline(df, out, hbm_gbps=819.0):
     for flags, g in fast.groupby("flags"):
         g = g.sort_values("P")
         ax.semilogx(g.P, g.gbps, marker="o", label=flags)
-    ax.axhline(hbm_gbps, color="k", ls=":", label="HBM roofline")
+    if hbm_gbps is not None:
+        ax.axhline(hbm_gbps, color="k", ls=":", label="HBM roofline")
     ax.set_xlabel("P (folds)")
     ax.set_ylabel("fold-phase achieved GB/s")
     ax.legend()
@@ -152,7 +154,7 @@ def plot_jit_modes(df, out):
     The mode is the trailing ``-{mode}`` token of the model column (see
     ``benchmark.py:run_cvmatrix``). The figure answers the reference's
     jit-modes question — what JIT costs you cold and buys you warm — for
-    the TPU engine (ref ``benchmarks/plot_benchmark.py:308-407``).
+    this engine (ref ``benchmarks/plot_benchmark.py:308-407``).
     """
     fast = df[df.model.str.startswith("CVMatrix")].copy()
     if fast.empty:

@@ -1,6 +1,6 @@
-"""cvmatrix_tpu — TPU-native fast cross-validation matrix engine.
+"""cvmatrix_tpu — fast cross-validation matrix engine in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the Engstrøm–Jensen fast
+A from-scratch JAX/XLA implementation of the Engstrøm–Jensen fast
 cross-validation algorithms (the capability set of the reference
 ``sm00thix/cvmatrix``, v3.2.1): compute the global weighted products
 ``X^T W X`` / ``X^T W Y`` once, then derive each fold's training-set matrices
@@ -24,9 +24,8 @@ from .core import (
     training_XTY,
 )
 from .models import CVMatrix, Partitioner
-from .policy import RoutingPolicy, policy, set_routing
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "CVMatrix",
@@ -39,8 +38,5 @@ __all__ = [
     "training_XTY",
     "training_XTX_XTY",
     "training_statistics",
-    "RoutingPolicy",
-    "policy",
-    "set_routing",
     "__version__",
 ]

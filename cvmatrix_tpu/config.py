@@ -7,14 +7,13 @@ dataclass so the per-fold functions are pure functions of ``(config, state,
 indices)`` and the config can be closed over / passed as a static argument to
 ``jax.jit`` without retracing hazards.
 
-TPU-specific additions (no reference equivalent):
+Addition with no reference equivalent:
 
-- ``matmul_mode``: how the ``A^T @ B`` contractions are lowered. TPUs have no
-  native float64 MXU path; XLA lowers f64 ``dot`` to an ~f32-accurate pass.
-  ``"exact"`` routes contractions through the Ozaki-style int8-slice matmul in
-  :mod:`cvmatrix_tpu.ops.precise` which is accurate to ~2^-53 relative while
-  running on the int8 MXU. ``"auto"`` picks ``"exact"`` for float64 on TPU and
-  the native XLA dot everywhere else.
+- ``matmul_mode``: how the ``A^T @ B`` contractions are lowered. ``"auto"``
+  and ``"native"`` use the backend's float64 ``dot`` (cuBLAS DGEMM on a GPU);
+  ``"exact"`` routes them through the Ozaki-style int8-slice matmul in
+  :mod:`cvmatrix_tpu.ops.precise`, accurate to ~2^-53 relative whatever the
+  backend's float64 product rounding.
 """
 
 from __future__ import annotations

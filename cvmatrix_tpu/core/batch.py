@@ -1,702 +1,21 @@
-"""Batched per-fold training matrices with Pallas kernel backends.
+"""Batched per-fold training matrices.
 
-This is the TPU fast path for fold batches: the cheap per-fold statistics
-(gathers, downdated means/stds — reference ``cvmatrix/cvmatrix.py:632-752``)
-run as vmapped XLA, while the O(F*K*C) epilogue (downdate + rank-one center +
-outer-product scale, reference ``:943-1010``) runs in ONE fused HBM pass
-through a Pallas kernel:
-
-- float64 engine: the double-float (f32 hi/lo pair) kernel
-  (:func:`~cvmatrix_tpu.ops.kernels.fused_downdate_df64_packed`) —
-  ~2^-46-relative agreement with the f64 reference (the 1e-8 contract with
-  orders of magnitude of margin). XLA's own f64 emulation computes the same
-  chain op-by-op at several times the flop count.
-- float32 engine: :func:`~cvmatrix_tpu.ops.kernels.fused_downdate` — MXU
-  downdate + f32 epilogue.
-
-Operand preparation is split out (:func:`prepare_fold_operands`) so sweep
-drivers can run it ONCE for all folds and slice per chunk — at LOOCV scale
-the per-chunk launch overhead of the ~30 small layout ops otherwise rivals
-the kernel itself.
-
-``impl="xla"`` (or any non-TPU backend / exotic config) falls back to the
-reference-shaped vmapped engine in :mod:`cvmatrix_tpu.core.fold` — identical
-semantics, different schedule.
+A (F, L) batch of folds runs as ``jax.vmap`` over the single-fold engine in
+:mod:`cvmatrix_tpu.core.fold`; XLA compiles the batched gathers, the batched
+(L x K)^T (L x (K + M)) downdate product and the rank-one epilogue. Semantics
+are exactly those of ``vmap(training_matrices)``.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..config import CVConfig
-from ..ops import kernels
-from ..ops.df64 import df_from_f64, df_to_f64, split
-from ..policy import policy as _policy
-from .fold import gather_val_blocks, _compute_training_stats, training_matrices
+from .fold import training_matrices, training_matrices_from_blocks
 from .state import FitState
 
-__all__ = [
-    "DatasetPlanes",
-    "FoldOperands",
-    "LoocvSources",
-    "OzakiSources",
-    "contract_from_planes",
-    "dataset_planes",
-    "gather_ozaki_rows",
-    "loocv_single_tile_ok",
-    "downdate_from_operands",
-    "loocv_from_sources",
-    "loocv_sym_from_sources",
-    "loocv_sym_tile",
-    "loocv_f32_from_sources",
-    "ozaki_v3_from_blocks",
-    "ozaki_v3_from_sources",
-    "ozaki_v3_ok",
-    "prepare_fold_operands",
-    "prepare_loocv_sources",
-    "prepare_ozaki_sources",
-    "slice_operands",
-    "smallfold_from_sources",
-    "stats_from_blocks",
-    "batched_matrices_from_blocks",
-    "training_matrices_batched",
-]
-
-
-def _stat_flags(config: CVConfig, return_XTX: bool, return_XTY: bool):
-    """Cross-coupled stat gating (reference ``cvmatrix.py:828-831``)."""
-    return dict(
-        return_X_mean=config.center_X or (return_XTY and config.center_Y),
-        return_X_std=config.scale_X,
-        return_Y_mean=return_XTY and (config.center_X or config.center_Y),
-        return_Y_std=return_XTY and config.scale_Y,
-    )
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _gather_and_stats(config, state, idx, mask, return_XTX, return_XTY):
-    flags = _stat_flags(config, return_XTX, return_XTY)
-
-    def one(v, mk):
-        blocks = gather_val_blocks(config, state, v, mk, return_XTY)
-        stats5 = _compute_training_stats(
-            config, state, blocks, check=False, **flags
-        )
-        return blocks, stats5
-
-    return jax.vmap(one, in_axes=(0, None if mask is None else 0))(idx, mask)
-
-
-class FoldOperands(NamedTuple):
-    """Padded, packed, pair-converted kernel operands for a fold batch.
-
-    ``total4``: (4 or 2, Kp, Cp) f32 — total hi, lo [, the hi part's Dekker
-    split — omitted at huge K and for the f32 engine].
-    ``u``/``v``: (F, L, 2, Kp/Cp) factor-scaled row pairs.
-    ``kvec``/``cvec``: (F, 2, 2, Kp/Cp) — [center vector, reciprocal std]
-    pairs per side. ``center``/``scale`` are the kernel's static flags;
-    ``k``/``c`` the unpadded output dims.
-    """
-
-    total4: jnp.ndarray
-    u: jnp.ndarray
-    v: jnp.ndarray
-    kvec: jnp.ndarray
-    cvec: jnp.ndarray
-    center: bool
-    scale: bool
-    k: int
-    c: int
-
-
-def _padded_dims(state, return_XTX, return_XTY):
-    """(k, c, kp, cp, blk) for the df64 large-fold kernel geometry."""
-    k = state.K
-    m = state.M if return_XTY else 0
-    c = (k if return_XTX else 0) + m
-    blk = 128 if max(k, c) > 4096 else 512
-    kp = _round_up(max(k, 8), 128)
-    cp = _round_up(max(c, 8), 128)
-    kp = _round_up(kp, min(blk, kp))
-    cp = _round_up(cp, min(blk, cp))
-    return k, c, kp, cp, blk
-
-
-def _total_planes(state, return_XTX, return_XTY, kp, cp, presplit):
-    """(2 or 4, Kp, Cp) total pair planes, built without a K x C concat copy
-    (at K=20k the concatenated f64 total alone is >3 GB of transient HBM)."""
-    n_planes = 4 if presplit else 2
-    planes = jnp.zeros((n_planes, kp, cp), jnp.float32)
-
-    def put(planes, mat, col):
-        if mat.dtype == jnp.float64:
-            hi, lo = df_from_f64(mat)
-        else:
-            hi = mat.astype(jnp.float32)
-            lo = jnp.zeros_like(hi)
-        w = mat.shape[1]
-        planes = planes.at[0, : mat.shape[0], col:col + w].set(hi)
-        planes = planes.at[1, : mat.shape[0], col:col + w].set(lo)
-        if presplit:
-            hh, hl = split(hi)
-            planes = planes.at[2, : mat.shape[0], col:col + w].set(hh)
-            planes = planes.at[3, : mat.shape[0], col:col + w].set(hl)
-        return planes
-
-    col = 0
-    if return_XTX:
-        planes = put(planes, state.XTX, 0)
-        col = state.XTX.shape[1]
-    if return_XTY:
-        planes = put(planes, state.XTY, col)
-    return planes
-
-
-def _pair_into(buf, x, row):
-    """Write f64 ``x``'s (hi, lo) pair into ``buf[:, row, 0/1, :width]``."""
-    hi, lo = df_from_f64(x)
-    return buf.at[:, row, 0, : x.shape[-1]].set(hi).at[
-        :, row, 1, : x.shape[-1]
-    ].set(lo)
-
-
-def _xy_concat(x_part, y_part):
-    """Concatenate the X- and Y-side vectors (either may be absent)."""
-    parts = [p for p in (x_part, y_part) if p is not None]
-    return jnp.concatenate(parts, axis=1) if len(parts) > 1 else parts[0]
-
-
-def _pack_kc_vectors(f_folds, kp, cp, *, scale, center, i1, i2, p_vec,
-                     q_vec):
-    """Assemble the kernels' packed per-fold K/C vector streams.
-
-    ``kvec``/``cvec``: (F, 2, 2, Kp/Cp) f32 — row 0 the center vectors
-    (p on the K side, q on the C side), row 1 the reciprocal-std vectors
-    (i1, i2), each as (hi, lo) double-float pairs. Reciprocal-std rows
-    default to exact 1.0 (padding included: padded output columns then
-    read total=0 * 1 - 0 = 0). Callers pass the vectors in THEIR form —
-    factor-form (stds folded into p/q) or reference-form (p/q unscaled).
-    ``i1`` may be None (X side unscaled) even when ``scale`` is set.
-    """
-    kvec = jnp.zeros((f_folds, 2, 2, kp), jnp.float32)
-    cvec = jnp.zeros((f_folds, 2, 2, cp), jnp.float32)
-    kvec = kvec.at[:, 1, 0, :].set(1.0)
-    cvec = cvec.at[:, 1, 0, :].set(1.0)
-    if scale:
-        if i1 is not None:
-            kvec = _pair_into(kvec, i1, 1)
-        cvec = _pair_into(cvec, i2, 1)
-    if center:
-        kvec = _pair_into(kvec, p_vec, 0)
-        cvec = _pair_into(cvec, q_vec, 0)
-    return kvec, cvec
-
-
-def prepare_fold_operands(
-    config: CVConfig,
-    state: FitState,
-    idx_batch,
-    mask_batch=None,
-    *,
-    return_XTX: bool = True,
-    return_XTY: bool = True,
-    block_k: int = 512,
-    block_c: int = 512,
-    with_stats: bool = True,
-    blocks_stats=None,
-):
-    """Kernel operands (and optionally stats) for a batch of folds.
-
-    ``blocks_stats=(blocks, stats5)`` skips the gather+stats phase and
-    builds operands from pre-assembled batched :class:`FoldBlocks` — the
-    mesh path gathers validation rows with a mask-and-psum collective
-    first and feeds them here (``idx_batch`` may then be ``None``).
-
-    Everything data-layout related happens here, once: gathers, downdated
-    statistics, reciprocal stds, factor scaling, f64 -> f32 pair conversion,
-    padding to tile multiples, and packing the per-fold vectors into single
-    streams. The result feeds
-    :func:`~cvmatrix_tpu.ops.kernels.fused_downdate_df64_packed` directly —
-    sweep drivers call this for ALL folds and slice the fold axis per chunk.
-
-    The math is the factor-scaled form of the reference epilogue
-    (``cvmatrix/cvmatrix.py:1001-1009``): with r = 1/std,
-
-        out = total (.) (r1 (x) r2) - sum_l (xv_l*r1) (x) (m2_l*r2)
-            - (sum_w_train*mean1*r1) (x) (mean2*r2)
-
-    with the center term zeroed per side via the q vector (XTX centers iff
-    center_X; XTY iff center_X or center_Y — reference ``:863,:893``).
-    """
-    if blocks_stats is None:
-        idx = jnp.asarray(idx_batch)
-        mask = (
-            None if mask_batch is None
-            else jnp.asarray(mask_batch, config.dtype)
-        )
-        blocks, stats5 = _gather_and_stats(
-            config, state, idx, mask, return_XTX, return_XTY
-        )
-    else:
-        blocks, stats5 = blocks_stats
-    X_mean, X_std, Y_mean, Y_std, sum_w_train = stats5
-    stats = (X_mean, X_std, Y_mean, Y_std)
-
-    f_folds, n_l = blocks.Xv_w.shape[:2]
-    k = state.K
-    m = state.M if return_XTY else 0
-    c = (k if return_XTX else 0) + m
-    kp = _round_up(max(k, 8), 128)
-    cp = _round_up(max(c, 8), 128)
-    kp = _round_up(kp, min(block_k, kp))
-    cp = _round_up(cp, min(block_c, cp))
-
-    # In the f32 engine the same operand layout is built without f64
-    # arithmetic: df_from_f64 on an f32 input yields (x, 0) pairs exactly.
-    f64 = jnp.float64 if np.dtype(config.dtype).itemsize == 8 else jnp.float32
-
-    r1 = (1.0 / X_std).astype(f64) if config.scale_X else None  # (F, 1, K)
-    r2y = (
-        (1.0 / Y_std).astype(f64)
-        if (return_XTY and config.scale_Y) else None
-    )
-
-    center_xtx = config.center_X
-    center_xty = config.center_X or config.center_Y
-    center = (return_XTX and center_xtx) or (return_XTY and center_xty)
-    scale = config.scale_X or (return_XTY and config.scale_Y)
-
-    # ---- row streams (factor-scaled) --------------------------------------
-    u64 = blocks.Xv_w.astype(f64)
-    if r1 is not None:
-        u64 = u64 * r1
-    u = jnp.zeros((f_folds, n_l, 2, kp), jnp.float32)
-    uh, ul = df_from_f64(u64)
-    u = u.at[:, :, 0, :k].set(uh).at[:, :, 1, :k].set(ul)
-
-    v = jnp.zeros((f_folds, n_l, 2, cp), jnp.float32)
-    off = 0
-    if return_XTX:
-        vx = blocks.Xv_u.astype(f64)
-        if r1 is not None:
-            vx = vx * r1
-        vh, vl = df_from_f64(vx)
-        v = v.at[:, :, 0, :k].set(vh).at[:, :, 1, :k].set(vl)
-        off = k
-    if return_XTY:
-        vy = blocks.Yv_u.astype(f64)
-        if r2y is not None:
-            vy = vy * r2y
-        vh, vl = df_from_f64(vy)
-        v = v.at[:, :, 0, off:off + m].set(vh).at[:, :, 1, off:off + m].set(vl)
-
-    # ---- per-fold K/C vectors (FACTOR form: stds folded into p/q) ---------
-    i1 = i2 = p_vec = q_vec = None
-    if scale:
-        if r1 is not None:
-            i1 = r1[:, 0, :]
-        i2 = _xy_concat(
-            (r1[:, 0, :] if r1 is not None
-             else jnp.ones((f_folds, k), f64)) if return_XTX else None,
-            (r2y[:, 0, :] if r2y is not None
-             else jnp.ones((f_folds, m), f64)) if return_XTY else None,
-        )
-    if center:
-        mX = X_mean[:, 0, :].astype(f64)
-        p_vec = sum_w_train.astype(f64)[:, None] * mX
-        if r1 is not None:
-            p_vec = p_vec * r1[:, 0, :]
-        if center_xty and return_XTY:
-            mY = Y_mean[:, 0, :].astype(f64)
-            qy = mY * r2y[:, 0, :] if r2y is not None else mY
-        else:
-            qy = jnp.zeros((f_folds, m), f64) if return_XTY else None
-        q_vec = _xy_concat(
-            ((mX * r1[:, 0, :] if r1 is not None else mX)
-             if center_xtx else jnp.zeros((f_folds, k), f64))
-            if return_XTX else None,
-            qy,
-        )
-    kvec, cvec = _pack_kc_vectors(f_folds, kp, cp, scale=scale,
-                                  center=center, i1=i1, i2=i2,
-                                  p_vec=p_vec, q_vec=q_vec)
-
-    # ---- total (4 or 2, Kp, Cp): hi, lo [, split(hi)] ----------------------
-    # Presplitting the total's hi part saves 4 kernel flops/element but
-    # doubles its HBM footprint — at huge K (genomics-wide problems) the
-    # extra planes alone are gigabytes, so split in-kernel instead.
-    presplit = (
-        (kp * cp <= 4096 * 4096) and scale
-        and np.dtype(config.dtype).itemsize == 8
-    )
-    total4 = _total_planes(state, return_XTX, return_XTY, kp, cp, presplit)
-
-    ops = FoldOperands(total4, u, v, kvec, cvec, center, scale, k, c)
-    return (ops, stats) if with_stats else (ops, None)
-
-
-class LoocvSources(NamedTuple):
-    """Operands for the all-in-one LOOCV kernel (:func:`fused_loocv_df64`).
-
-    Everything except ``scal`` is per-DATASET (built once per sweep, sliced
-    never): row-pair sources the kernel gathers from directly, pre-shifted
-    Y-side operands, global stat vectors, and the padded total planes.
-    ``scal`` is the (F, 128) per-fold scalar stream (sliced per chunk).
-    """
-
-    total4: jnp.ndarray
-    xw: jnp.ndarray
-    xu: jnp.ndarray
-    yu: jnp.ndarray
-    yw: jnp.ndarray
-    gx: jnp.ndarray
-    gy: jnp.ndarray
-    ymask: jnp.ndarray
-    scal: jnp.ndarray
-    mrow: jnp.ndarray
-
-    @property
-    def kp(self) -> int:
-        return self.total4.shape[1]
-
-    @property
-    def cp(self) -> int:
-        return self.total4.shape[2]
-
-
-def loocv_single_tile_ok(config: CVConfig, state: FitState, return_XTX: bool,
-                         return_XTY: bool) -> bool:
-    """Whether the fused LOOCV kernels' geometry applies (f64 and f32).
-
-    Requires the XTX side present and the concatenated [X | Y] output to
-    fit ONE square tile (Kp == Cp <= 1024) so that X-side vectors serve
-    both operand layouts unchanged. Callers pick the engine kernel by
-    dtype.
-    """
-    if not return_XTX:
-        return False
-    k = state.K
-    c = k + ((state.M or 0) if return_XTY else 0)
-    kp = _round_up(max(k, 8), 128)
-    cp = _round_up(max(c, 8), 128)
-    return kp == cp and cp <= 1024
-
-
-def _row_pairs(mat, col0: int, cp: int):
-    """(N, C) rows -> (N, 2, cp) f32 pair planes at column offset ``col0``.
-
-    f64 input produces true (hi, lo) pairs; f32 input produces (x, 0)
-    exactly (no f64 arithmetic is requested for the f32 engine).
-    """
-    hi, lo = df_from_f64(mat) if mat.dtype == jnp.float64 else (
-        mat.astype(jnp.float32), jnp.zeros(mat.shape, jnp.float32))
-    w = mat.shape[1]
-    out = jnp.zeros((mat.shape[0], 2, cp), jnp.float32)
-    return out.at[:, 0, col0:col0 + w].set(hi).at[:, 1, col0:col0 + w].set(lo)
-
-
-def _vec_pairs(vec, col0: int, cp: int, row0: int, buf):
-    """Write a (1, C) vector's pair into ``buf[row0:row0+2]`` shifted."""
-    hi, lo = df_from_f64(vec) if vec.dtype == jnp.float64 else (
-        vec.astype(jnp.float32), jnp.zeros(vec.shape, jnp.float32))
-    w = vec.shape[-1]
-    return buf.at[row0, col0:col0 + w].set(hi[0]).at[
-        row0 + 1, col0:col0 + w
-    ].set(lo[0])
-
-
-def _fold_scalar_stream(config, state, rows, mask, f_folds, n_l, f64,
-                        n_rows_total=None):
-    """(F, 1, 128) per-fold scalar pairs: [sum_w_train, 1/sum_w_train,
-    1/std_divisor] — the trace-safe scalars of
-    :func:`cvmatrix_tpu.core.fold._train_weight_scalars` / ``_std_divisor``
-    with reciprocals taken host-side of the kernel.
-
-    ``n_rows_total`` overrides ``state.N`` for the unweighted count
-    downdate — under ``shard_map`` the state view holds only this shard's
-    rows, so the caller must pass the GLOBAL row count."""
-    scal = jnp.zeros((f_folds, 1, 128), jnp.float32)
-    if state.weights is not None:
-        wv = state.weights[rows, 0].astype(f64).reshape(f_folds, n_l)
-        if mask is not None:
-            wv = wv * mask.astype(f64)
-        sw_t = state.sum_w.astype(f64) - wv.sum(axis=1)
-        nnz_t = state.num_nonzero_w.astype(f64) - jnp.count_nonzero(
-            wv, axis=1
-        )
-    elif mask is not None:
-        sw_t = state.sum_w.astype(f64) - mask.astype(f64).sum(axis=1)
-        nnz_t = sw_t
-    else:
-        n_total = state.N if n_rows_total is None else n_rows_total
-        sw_t = jnp.full((f_folds,), n_total - n_l, f64)
-        nnz_t = sw_t
-    divisor = (nnz_t - config.ddof) * sw_t / nnz_t
-    for col, val in ((0, sw_t), (2, 1.0 / sw_t), (4, 1.0 / divisor)):
-        hi, lo = df_from_f64(val)
-        scal = scal.at[:, 0, col].set(hi).at[:, 0, col + 1].set(lo)
-    return scal
-
-
-def prepare_loocv_sources(
-    config: CVConfig,
-    state: FitState,
-    idx_batch,
-    mask_batch=None,
-    *,
-    return_XTX: bool = True,
-    return_XTY: bool = True,
-    presplit=None,
-    n_rows_total=None,
-) -> LoocvSources:
-    """Build the dataset-wide operands for :func:`fused_loocv_df64`.
-
-    Replaces the per-fold hoisted prep of :func:`prepare_fold_operands` for
-    single-row folds: instead of materialising per-fold u/v/kvec/cvec streams
-    (~24 KB/fold), the kernel gathers validation rows itself and derives the
-    per-fold vectors on the fly — only the O(F) scalar stream remains.
-    Scalars follow :func:`cvmatrix_tpu.core.fold._train_weight_scalars` /
-    ``_std_divisor`` (reference ``cvmatrix/cvmatrix.py:589-630, 1045-1079``)
-    with reciprocals taken here so the kernel never divides by a scalar.
-    """
-    idx = jnp.asarray(idx_batch)
-    rows = idx.reshape(-1).astype(jnp.int32)
-    f_folds, n_l = idx.shape[0], (idx.shape[1] if idx.ndim > 1 else 1)
-    mask = (
-        None if mask_batch is None
-        else jnp.asarray(mask_batch, config.dtype).reshape(f_folds, n_l)
-    )
-    if not return_XTX:
-        # The packed layout places Y at columns [K, K+M) of the SAME tile
-        # as XTX; without the XTX side, _total_planes would pack XTY at
-        # column 0 while every Y-side vector still points at [K, K+M) —
-        # silently misaligned operands (not a geometry problem, so the
-        # Kp == Cp check below cannot catch it).
-        raise ValueError(
-            "the fused LOOCV kernels require return_XTX=True; "
-            "check loocv_single_tile_ok before preparing sources"
-        )
-    k = state.K
-    m = state.M if return_XTY else 0
-    c = k + (m or 0) if return_XTY else k
-    kp = _round_up(max(k, 8), 128)
-    cp = kp
-    if _round_up(max(c, 8), 128) != kp or kp > 1024:
-        raise ValueError(
-            f"single-tile geometry required (K={k}, C={c} -> Kp={kp}); "
-            "check loocv_single_tile_ok before preparing sources"
-        )
-    weighted = state.weights is not None
-    with_y = return_XTY
-    # f32 engine: the same prep runs in f32 (pairs become (x, 0) exactly).
-    f64 = (
-        jnp.float64 if np.dtype(config.dtype).itemsize == 8 else jnp.float32
-    )
-
-    xw = _row_pairs(state.WX if weighted else state.X, 0, kp)
-    xu = _row_pairs(state.X, 0, kp) if weighted else xw
-
-    center = config.center_X or (with_y and config.center_Y)
-    need_x_mean = center or config.scale_X
-    need_y_stats = with_y and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-    if with_y:
-        yu = _row_pairs(state.Y, k, cp)
-        yw = (
-            _row_pairs(state.WY, k, cp)
-            if (weighted and need_y_stats) else yu
-        )
-        ymask = jnp.zeros((1, cp), jnp.float32).at[:, k:k + m].set(1.0)
-        gy = jnp.zeros((4, cp), jnp.float32)
-        if need_y_stats:
-            gy = _vec_pairs(state.sum_Y, k, cp, 0, gy)
-        if config.scale_Y:
-            gy = _vec_pairs(state.sum_sq_Y, k, cp, 2, gy)
-    else:
-        yu = yw = jnp.zeros((1, 2, cp), jnp.float32)
-        ymask = jnp.zeros((1, cp), jnp.float32)
-        gy = jnp.zeros((4, cp), jnp.float32)
-
-    gx = jnp.zeros((4, kp), jnp.float32)
-    if need_x_mean:
-        gx = _vec_pairs(state.sum_X, 0, kp, 0, gx)
-    if config.scale_X:
-        gx = _vec_pairs(state.sum_sq_X, 0, kp, 2, gx)
-
-    # (F, 1, 128): the trailing (1, 128) satisfies Mosaic's block rules.
-    scal = (
-        _fold_scalar_stream(config, state, rows, mask, f_folds, n_l, f64,
-                            n_rows_total=n_rows_total)
-        if (need_x_mean or need_y_stats)
-        else jnp.zeros((f_folds, 1, 128), jnp.float32)
-    )
-    if mask is None:
-        mrow = jnp.zeros((1, 1, 1, 128), jnp.float32)
-    else:
-        mrow = jnp.zeros((f_folds, n_l, 1, 128), jnp.float32).at[
-            :, :, 0, 0
-        ].set(mask.astype(jnp.float32))
-
-    scale = config.scale_X or (with_y and config.scale_Y)
-    if presplit is None:
-        # The factor-form L == 1 kernel reads a presplit total when scaling;
-        # the reference-form small-fold kernel splits in-register instead.
-        # f64 only: the f32 engine reads plane 0 alone, so presplit planes
-        # would double its VMEM staging for nothing.
-        presplit = scale and n_l == 1 and np.dtype(config.dtype).itemsize == 8
-    total4 = _total_planes(state, return_XTX, return_XTY, kp, cp,
-                           presplit=presplit)
-    return LoocvSources(total4, xw, xu, yu, yw, gx, gy, ymask, scal, mrow)
-
-
-def loocv_f32_from_sources(config: CVConfig, src: LoocvSources,
-                           rows, scal_slice=None, *, return_XTY: bool,
-                           two_per_step: bool = False,
-                           interpret: bool = False):
-    """Run the f32-engine fused LOOCV kernel on prepared sources.
-
-    ``two_per_step`` routes the two-folds-per-grid-step variant (even
-    fold counts only) — halves the per-step grid overhead of the
-    store-bound f32 sweep.
-    """
-    kern = (kernels.fused_loocv_f32x2 if two_per_step
-            else kernels.fused_loocv_f32)
-    return kern(
-        rows, src.total4, src.xw, src.xu, src.yu, src.yw, src.gx, src.gy,
-        src.ymask, src.scal if scal_slice is None else scal_slice,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        interpret=interpret,
-    )
-
-
-def loocv_from_sources(config: CVConfig, src: LoocvSources,
-                       rows, scal_slice=None, *, return_XTY: bool,
-                       two_per_step: bool = False,
-                       interpret: bool = False):
-    """Run the fused LOOCV kernel on (a slice of) prepared sources.
-
-    ``two_per_step`` routes the two-folds-per-grid-step variant (even
-    fold counts only) — identical math, half the per-step grid overhead.
-    """
-    kern = (kernels.fused_loocv_df64x2 if two_per_step
-            else kernels.fused_loocv_df64)
-    return kern(
-        rows, src.total4, src.xw, src.xu, src.yu, src.yw, src.gx, src.gy,
-        src.ymask, src.scal if scal_slice is None else scal_slice,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        interpret=interpret,
-    )
-
-
-# Routing knobs live in cvmatrix_tpu.policy (one place, in-process A/B
-# via set_routing, env vars demoted to debug overrides). These accessors
-# are consulted at trace time; set_routing clears the registered program
-# caches so flips actually re-trace. When both df64x2 and sym_loocv are
-# on, sym wins the route.
-def _sym_enabled() -> bool:
-    return _policy().sym_loocv
-
-
-def _f32x2_enabled() -> bool:
-    return _policy().f32x2
-
-
-def _df64x2_enabled() -> bool:
-    return _policy().df64x2
-
-
-def _hoist_reduce_enabled() -> bool:
-    return _policy().hoist_reduce
-
-
-def loocv_sym_tile(kp: int):
-    """Tile size for the symmetric-mirror LOOCV kernel, or None.
-
-    Mirroring pays only with >= 2 tiles per side; 256-tiles keep the grid
-    short (per-step overhead) and are preferred when they divide ``kp``.
-    """
-    if kp >= 512 and kp % 256 == 0:
-        return 256
-    if kp >= 256 and kp % 128 == 0:
-        return 128
-    return None
-
-
-def loocv_sym_from_sources(config: CVConfig, src: LoocvSources,
-                           rows, scal_slice=None, *, return_XTY: bool,
-                           bt: int = 256, interpret: bool = False):
-    """Run the symmetric-mirror LOOCV kernel on prepared sources."""
-    return kernels.fused_loocv_df64_sym(
-        rows, src.total4, src.xw, src.xu, src.yu, src.yw, src.gx, src.gy,
-        src.ymask, src.scal if scal_slice is None else scal_slice,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        bt=bt,
-        interpret=interpret,
-    )
-
-
-def smallfold_from_sources(config: CVConfig, src: LoocvSources, rows,
-                           scal_slice=None, mrow_slice=None, *, n_l: int,
-                           return_XTY: bool, has_mask: bool,
-                           interpret: bool = False):
-    """Run the general small-fold kernel on (a slice of) prepared sources."""
-    return kernels.fused_smallfold_df64(
-        rows, src.total4, src.xw, src.xu, src.yu, src.yw, src.gx, src.gy,
-        src.ymask, src.scal if scal_slice is None else scal_slice,
-        src.mrow if mrow_slice is None else mrow_slice,
-        n_l=n_l,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        has_mask=has_mask,
-        resolution=config.resolution,
-        interpret=interpret,
-    )
-
-
-def downdate_from_operands(ops: FoldOperands, *, block_k=512, block_c=512,
-                           interpret=False):
-    """Run the packed df64 kernel; returns raw (F, 2, Kp, Cp) pairs."""
-    return kernels.fused_downdate_df64_packed(
-        ops.total4, ops.u, ops.v, ops.kvec, ops.cvec,
-        center=ops.center, scale=ops.scale,
-        block_k=block_k, block_c=block_c, interpret=interpret,
-    )
-
-
-def slice_operands(ops: FoldOperands, start, size: int) -> FoldOperands:
-    """Fold-axis slice (dynamic start, static size) of prepared operands."""
-    def sl(a):
-        return jax.lax.dynamic_slice_in_dim(a, start, size, 0)
-
-    return ops._replace(u=sl(ops.u), v=sl(ops.v), kvec=sl(ops.kvec),
-                        cvec=sl(ops.cvec))
+__all__ = ["batched_matrices_from_blocks", "training_matrices_batched"]
 
 
 def training_matrices_batched(
@@ -707,20 +26,11 @@ def training_matrices_batched(
     *,
     return_XTX: bool = True,
     return_XTY: bool = True,
-    impl: str = "auto",
-    pair_output: bool = False,
-    trim_output: bool = True,
-    _total_planes_override=None,
 ):
     """Training matrices for a (F, L) batch of folds.
 
     Returns the same structure as ``vmap(training_matrices)``: matrices with
-    a leading fold axis plus the stats 4-tuple. With ``pair_output=True``
-    (f64 Pallas path only) matrices are returned as (F, 2, K, C) f32 hi/lo
-    pairs — ``hi + lo`` is the f64 value — skipping the final pair->f64
-    combine pass; with ``trim_output=False`` additionally the raw padded
-    (F, 2, Kp, Cp) buffer comes back unsplit (columns [:K] are XTX) so
-    padding-aware consumers skip the trim copy entirely.
+    a leading fold axis plus the stats 4-tuple.
     """
     if not return_XTX and not return_XTY:
         raise ValueError(
@@ -731,1217 +41,36 @@ def training_matrices_batched(
 
     idx = jnp.asarray(idx_batch)
     mask = None if mask_batch is None else jnp.asarray(mask_batch, config.dtype)
-    dt = np.dtype(config.dtype)
 
-    if impl == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        impl = "pallas" if (on_tpu and dt.itemsize in (4, 8)) else "xla"
-
-    if impl == "xla":
-        if pair_output:  # static: check BEFORE the whole vmapped sweep runs
-            raise ValueError("pair_output requires the f64 Pallas impl.")
-        fold_fn = lambda v, mk: training_matrices(  # noqa: E731
+    def one(v, mk):
+        return training_matrices(
             config, state, v, mk,
             return_XTX=return_XTX, return_XTY=return_XTY,
         )
-        in_axes = (0, None if mask is None else 0)
-        return jax.vmap(fold_fn, in_axes=in_axes)(idx, mask)
-    if impl != "pallas":
-        raise ValueError(f"Unknown impl: {impl!r} (auto|pallas|xla).")
 
-    if dt.itemsize == 4:
-        if pair_output:
-            raise ValueError("pair_output requires the f64 Pallas impl.")
-        if idx.shape[1] >= LARGE_FOLD_ROWS:  # f32: no fused Ozaki variant
-            return _f32_kernel_path(
-                config, state, idx, mask,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-            )
-        ops, stats = prepare_fold_operands(
-            config, state, idx, mask,
-            return_XTX=return_XTX, return_XTY=return_XTY,
-        )
-        out32 = kernels.fused_downdate_f32_packed(
-            ops.total4, ops.u, ops.v, ops.kvec, ops.cvec,
-            center=ops.center, scale=ops.scale,
-        )
-        k, c = ops.k, ops.c
-        if not trim_output:
-            return out32, stats  # raw padded (F, Kp, Cp)
-        out = out32[:, :k, :c]
-        if return_XTX and return_XTY:
-            return (out[:, :, :k], out[:, :, k:]), stats
-        return out, stats
-
-    if idx.shape[1] >= large_fold_threshold(config, state, return_XTX,
-                                             return_XTY):
-        pair_out, stats, k, c = _large_fold_pallas_path(
-            config, state, idx, mask,
-            return_XTX=return_XTX, return_XTY=return_XTY,
-            total_planes=_total_planes_override,
-        )
-    else:
-        ops, stats = prepare_fold_operands(
-            config, state, idx, mask,
-            return_XTX=return_XTX, return_XTY=return_XTY,
-        )
-        pair_out = downdate_from_operands(ops)
-        k, c = ops.k, ops.c
-    if pair_output:
-        if not trim_output:
-            return pair_out, stats
-        out = pair_out[:, :, :k, :c]
-    else:
-        out = df_to_f64(pair_out[:, 0, :k, :c], pair_out[:, 1, :k, :c])
-    if return_XTX and return_XTY:
-        if pair_output:
-            mats = (out[:, :, :, :k], out[:, :, :, k:])
-        else:
-            mats = (out[:, :, :k], out[:, :, k:])
-        return mats, stats
-    return out, stats
-
-
-def stats_from_blocks(config, state, blocks, return_XTX=True,
-                      return_XTY=True):
-    """Vmapped training statistics from pre-gathered batched FoldBlocks."""
-    flags = _stat_flags(config, return_XTX, return_XTY)
-
-    def one(blks):
-        return _compute_training_stats(config, state, blks, check=False,
-                                       **flags)
-
-    return jax.vmap(one)(blocks)
+    return jax.vmap(one, in_axes=(0, None if mask is None else 0))(idx, mask)
 
 
 def batched_matrices_from_blocks(
     config: CVConfig,
     state: FitState,
     blocks,
-    stats5=None,
     *,
     return_XTX: bool = True,
     return_XTY: bool = True,
-    impl: str = "auto",
-    interpret: bool = False,
 ):
     """Training matrices for pre-gathered batched :class:`FoldBlocks`.
 
-    The mesh fold path: validation rows arrive from a mask-and-psum gather
-    over the row shards (``parallel.distributed``), so this entry runs the
-    SAME kernel routing as :func:`training_matrices_batched` minus the
-    gather — packed df64 kernel for small folds, MXU product + epilogue
-    (fused Ozaki where eligible) for large ones. Shard-local: no
-    collectives, safe inside ``shard_map``. ``interpret=True`` runs the
-    Pallas kernels in interpret mode (CPU wiring tests).
-
-    Returns ``(mats, (X_mean, X_std, Y_mean, Y_std))`` with f64 matrices,
-    exactly like ``vmap(training_matrices_from_blocks)``.
+    The mesh fold path: validation rows arrive from a mask-and-reduce-scatter
+    gather over the row shards (``parallel.distributed``). Shard-local: no
+    collectives, safe inside ``shard_map``. Returns
+    ``(mats, (X_mean, X_std, Y_mean, Y_std))`` with a leading fold axis.
     """
-    dt = np.dtype(config.dtype)
-    if impl == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        impl = "pallas" if (on_tpu and dt.itemsize in (4, 8)) else "xla"
-    if impl == "xla":
-        # training_matrices_from_blocks derives its statistics internally —
-        # computing stats5 first would double the stats work (not
-        # guaranteed to be CSE'd outside jit).
-        from .fold import training_matrices_from_blocks
 
-        def one(blks):
-            return training_matrices_from_blocks(
-                config, state, blks,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-            )
-
-        return jax.vmap(one)(blocks)
-    if impl != "pallas":
-        raise ValueError(f"Unknown impl: {impl!r} (auto|pallas|xla).")
-    if stats5 is None:
-        stats5 = stats_from_blocks(config, state, blocks, return_XTX,
-                                   return_XTY)
-
-    n_l = blocks.Xv_w.shape[1]
-    is_f64 = dt.itemsize == 8
-    if (
-        n_l == 1 and blocks.mask is None
-        and loocv_single_tile_ok(config, state, return_XTX, return_XTY)
-    ):
-        # Mesh LOOCV: the gathered blocks ARE a one-row-per-fold stream, so
-        # the all-in-one LOOCV kernels (the single-chip headline route) run
-        # unchanged with rows = arange(F) — no per-chunk operand packing.
-        src = loocv_sources_from_blocks(config, state, blocks,
-                                        return_XTY=return_XTY)
-        rows = jnp.arange(blocks.Xv_w.shape[0], dtype=jnp.int32)
-        k = state.K
-        c = k + ((state.M or 0) if return_XTY else 0)
-        if is_f64:
-            bt_sym = loocv_sym_tile(src.kp) if _sym_enabled() else None
-            if bt_sym is not None:
-                pair_out = loocv_sym_from_sources(
-                    config, src, rows, return_XTY=return_XTY, bt=bt_sym,
-                    interpret=interpret,
-                )
-            else:
-                pair_out = loocv_from_sources(
-                    config, src, rows, return_XTY=return_XTY,
-                    two_per_step=_df64x2_enabled() and rows.shape[0] % 2 == 0,
-                    interpret=interpret,
-                )
-            out = df_to_f64(pair_out[:, 0, :k, :c], pair_out[:, 1, :k, :c])
-        else:
-            out32 = loocv_f32_from_sources(
-                config, src, rows, return_XTY=return_XTY,
-                two_per_step=_f32x2_enabled() and rows.shape[0] % 2 == 0,
-                interpret=interpret,
-            )
-            out = out32[:, :k, :c]
-        stats = stats5[:4]
-        if return_XTX and return_XTY:
-            return (out[:, :, :k], out[:, :, k:]), stats
-        return out, stats
-    if (
-        not is_f64
-        and n_l >= LARGE_FOLD_ROWS
-    ):
-        # f32 large folds: the same MXU downdate route as
-        # training_matrices_batched (the packed L-step VPU kernel would
-        # cost O(L) passes per fold).
-        return _f32_kernel_path(
-            config, state, None, None,
+    def one(blks):
+        return training_matrices_from_blocks(
+            config, state, blks,
             return_XTX=return_XTX, return_XTY=return_XTY,
-            blocks_stats=(blocks, stats5), interpret=interpret,
         )
-    if (
-        is_f64
-        and n_l >= large_fold_threshold(config, state, return_XTX, return_XTY)
-    ):
-        if ozaki_v3_ok(config, state, return_XTX, return_XTY, n_l):
-            # Same v3 fused route as the single-chip sweep: trimmed
-            # prefix-stack slice products (chunk-global column scales) beat
-            # the per-fold 10-slice shallow products the generic path pays
-            # — this is the mesh fold path's hot route at mid-band P.
-            k = state.K
-            c = k + ((state.M or 0) if return_XTY else 0)
-            pair_out = ozaki_v3_from_blocks(
-                config, state, blocks, stats5,
-                return_XTY=return_XTY, interpret=interpret,
-            )
-            stats = stats5[:4]
-            out = df_to_f64(pair_out[:, 0, :k, :c], pair_out[:, 1, :k, :c])
-        else:
-            pair_out, stats, k, c = _large_fold_pallas_path(
-                config, state, None, None,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-                blocks_stats=(blocks, stats5), interpret=interpret,
-            )
-            out = df_to_f64(pair_out[:, 0, :k, :c], pair_out[:, 1, :k, :c])
-    else:
-        ops, stats = prepare_fold_operands(
-            config, state, None,
-            return_XTX=return_XTX, return_XTY=return_XTY,
-            blocks_stats=(blocks, stats5),
-        )
-        k, c = ops.k, ops.c
-        if is_f64:
-            pair_out = downdate_from_operands(ops, interpret=interpret)
-            out = df_to_f64(pair_out[:, 0, :k, :c], pair_out[:, 1, :k, :c])
-        else:
-            out32 = kernels.fused_downdate_f32_packed(
-                ops.total4, ops.u, ops.v, ops.kvec, ops.cvec,
-                center=ops.center, scale=ops.scale, interpret=interpret,
-            )
-            out = out32[:, :k, :c]
-    if return_XTX and return_XTY:
-        return (out[:, :, :k], out[:, :, k:]), stats
-    return out, stats
 
-
-# Folds with at least this many validation rows compute their downdate
-# product on the MXU (exact int8-slice contraction) instead of as an L-step
-# double-float VPU accumulation. Two thresholds: when the FUSED Ozaki
-# kernel applies (single square tile, exact mode) its slice products cost
-# ~3.5 VPU-flop equivalents/row vs 21 for the packed accumulation, and the
-# measured v5e crossover is 10 rows (350 vs 388 ms at P=10000, N=100k
-# K=500 TTTT). The split contract-then-epilogue pipeline (huge K,
-# Kp != Cp, or native matmul mode) round-trips the (F, Kp, Cp) product
-# through HBM and only wins from 32 rows — use large_fold_threshold() to
-# pick per shape.
-LARGE_FOLD_ROWS = 32
-FUSED_LARGE_FOLD_ROWS = 10
-# Above this padded K the default large-fold route computes the downdate
-# product with the column-blocked in-place pair contraction (no full-size
-# f64 product temporary; see _large_fold_pallas_path). Module constant so
-# tests can lower it and drive the route at test scale.
-_BLOCKED_PROD_MIN_KP = 8192
-
-
-def _fused_ozaki_eligible(config, state, return_XTX, return_XTY) -> bool:
-    # Backend-independent on purpose: the threshold is only consulted when
-    # routing to the TPU Pallas paths, where auto == exact for f64.
-    k = state.K
-    c = k + ((state.M or 0) if return_XTY else 0)
-    kp = _round_up(max(k, 8), 128)
-    cp = _round_up(max(c, 8), 128)
-    return (
-        return_XTX and kp == cp and kp <= 512
-        and np.dtype(config.dtype).itemsize == 8
-        and config.matmul_mode in ("auto", "exact")
-    )
-
-
-def large_fold_threshold(config, state, return_XTX, return_XTY) -> int:
-    """Row count above which fold batches take the MXU-product path."""
-    if _fused_ozaki_eligible(config, state, return_XTX, return_XTY):
-        return FUSED_LARGE_FOLD_ROWS
-    return LARGE_FOLD_ROWS
-
-
-# HBM a whole-sweep operand hoist may occupy (matches the sweep drivers'
-# default per-chunk budgets). Above this the reduce sweeps fall back to
-# per-chunk prep rather than pinning multi-GB u/v streams for the run.
-_HOIST_BUDGET_BYTES = 4e9
-
-
-def _hoisted_operand_bytes(state, n_folds, n_l, return_XTX,
-                           return_XTY) -> int:
-    """Estimated bytes of :func:`prepare_fold_operands`' packed streams.
-
-    u: (F, L, 2, Kp) f32, v: (F, L, 2, Cp), kvec/cvec: (F, 2, 2, Kp/Cp) —
-    the fold-axis streams a whole-sweep hoist keeps resident.
-    """
-    _, _, kp, cp, _ = _padded_dims(state, return_XTX, return_XTY)
-    return 8 * n_folds * (n_l + 2) * (kp + cp)
-
-
-def _v3_hoist_bytes(state, n_folds, n_l) -> int:
-    """Estimated resident bytes of a hoisted v3 reduce sweep: the int8
-    dataset slice planes (both sides) plus the per-fold vector and stat
-    streams the scan slices from."""
-    kp = _round_up(max(state.K, 8), 128)
-    n_sp = kernels.ozaki_trim_groups(n_l)
-    planes = 2 * n_sp * state.X.shape[0] * kp
-    streams = n_folds * (2 * kp + 4 * kp + 128) * 4
-    stats = n_folds * state.K * 8 * 2
-    return planes + streams + stats
-
-
-def _v3_blocks_hoist_bytes(state, n_folds, n_l) -> int:
-    """Estimated per-device resident bytes of a blocks-built hoisted v3
-    sweep (:func:`ozaki_operands_from_blocks`): (Sp, F * Lp, Kp) int8
-    streams both sides, the gathered f64 blocks, and the vector/stat
-    streams."""
-    kp = _round_up(max(state.K, 8), 128)
-    lp = _round_up(n_l, 32)
-    n_sp = kernels.ozaki_trim_groups(n_l)
-    int8_streams = 2 * n_sp * n_folds * lp * kp
-    blocks = 2 * n_folds * n_l * state.K * 8
-    streams = n_folds * (2 * kp + 4 * kp + 128) * 4
-    stats = n_folds * state.K * 8 * 2
-    return int8_streams + blocks + streams + stats
-
-
-def _large_fold_pallas_path(config, state, idx, mask, *, return_XTX,
-                            return_XTY, total_planes=None,
-                            blocks_stats=None, interpret=False):
-    """MXU downdate product + one-pass df64 epilogue (large folds).
-
-    Computes ``prod[f] = Xv_w[f]^T @ [Xv_u | Yv_u][f]`` with the exact
-    contraction (:func:`cvmatrix_tpu.ops.precise.contract`, f64-grade on the
-    int8 MXU), then applies ``(total - prod - sw*m1 (x) m2) (.) (r1 (x) r2)``
-    in the epilogue-only kernel. Matches the reference operand form
-    (``cvmatrix/cvmatrix.py:1001-1009``) with the center term inside the
-    scale — p/q here are UNSCALED, unlike :func:`prepare_fold_operands`.
-    """
-    from ..ops.precise import contract
-
-    if blocks_stats is None:
-        blocks, stats5 = _gather_and_stats(
-            config, state, idx, mask, return_XTX, return_XTY
-        )
-    else:
-        blocks, stats5 = blocks_stats
-    X_mean, X_std, Y_mean, Y_std, sum_w_train = stats5
-    stats = (X_mean, X_std, Y_mean, Y_std)
-    f_folds = blocks.Xv_w.shape[0]
-    # At genomics-wide K every padded column costs megabytes across four
-    # (Kp, Cp)-sized buffers: _padded_dims picks 128-blocks there so the
-    # padding stays ~0.5% instead of rounding up to 512 multiples.
-    k, c, kp, cp, blk = _padded_dims(state, return_XTX, return_XTY)
-    m = state.M if return_XTY else 0
-    f64 = jnp.float64
-
-    center_xtx = config.center_X
-    center_xty = config.center_X or config.center_Y
-    center = (return_XTX and center_xtx) or (return_XTY and center_xty)
-    scale = config.scale_X or (return_XTY and config.scale_Y)
-
-    m2_parts = []
-    if return_XTX:
-        m2_parts.append(blocks.Xv_u)
-    if return_XTY:
-        m2_parts.append(blocks.Yv_u)
-    m2 = (
-        jnp.concatenate(m2_parts, axis=2)
-        if len(m2_parts) > 1 else m2_parts[0]
-    )
-    # Column-pad the ROW OPERANDS (cheap: L rows) so the contraction emits
-    # the product directly in kernel layout — padding the (Kp, Cp) product
-    # afterwards would materialise a multi-GB scatter at genomics-wide K.
-    n_l = blocks.Xv_w.shape[1]
-    from ..ops.precise import _use_exact, row_slice_operands
-
-    # Fused path: slice stacks feed ONE kernel doing the int8 MXU products,
-    # group recombination AND the epilogue — the (F, Kp, Cp) product pair
-    # never round-trips HBM. Single square tile, bounded row count (VMEM).
-    use_fused = (
-        kp == cp and kp <= 512 and n_l <= 1024
-        and _use_exact(config.matmul_mode, jnp.float64)
-    )
-    rows = _round_up(n_l, 32) if use_fused else n_l
-
-    def padded_row_operands():
-        xvp = jnp.zeros((f_folds, rows, kp), f64).at[:, :n_l, :k].set(
-            blocks.Xv_w.astype(f64)
-        )
-        m2p = jnp.zeros((f_folds, rows, cp), f64).at[:, :n_l, :c].set(
-            m2.astype(f64)
-        )
-        return xvp, m2p
-
-    if use_fused:
-        xvp, m2p = padded_row_operands()
-        sa, pa = jax.vmap(row_slice_operands)(xvp)
-        sb, pb = jax.vmap(row_slice_operands)(m2p)
-    else:
-        from ..ops import precise as _precise
-
-        # Opt-in SYRK for the wide-K batched downdate: the UNPADDED
-        # operands keep the leading k block symmetric (padded twins would
-        # mix Y columns into it), so the mirrored contraction skips
-        # ~45% of the per-fold MXU work; the price is padding the (kp, cp)
-        # product afterwards — one extra fused output write per fold.
-        # CAPPED below the blocked-product threshold: at genomics-wide K
-        # this route's full f64 product + padded copy + pair buffer OOMed
-        # a 16 GB chip (round 5, logs/widek_syrk.a1.log) while the blocked
-        # route below completed — the A/B is decided by fitting at all.
-        use_syrk = (
-            _policy().batch_syrk and return_XTX
-            and _use_exact(config.matmul_mode, jnp.float64)
-            and k >= _precise._SYRK_MIN_K
-            and kp < _BLOCKED_PROD_MIN_KP
-        )
-        use_blocked = (
-            not use_syrk
-            and kp >= _BLOCKED_PROD_MIN_KP
-            and n_l <= _precise._GROUP_CHUNK
-            and _use_exact(config.matmul_mode, jnp.float64)
-        )
-        if use_syrk:
-            prod_t = jax.vmap(
-                lambda a, b: contract(a, b, mode=config.matmul_mode,
-                                      symmetric_k=k)
-            )(blocks.Xv_w.astype(f64), m2.astype(f64))
-            prod64 = jnp.zeros(
-                (f_folds, kp, cp), f64).at[:, :k, :c].set(prod_t)
-        elif use_blocked:
-            # Genomics-wide K: the unblocked route's f64 product + pair
-            # split keeps several (Kp, Cp)-sized temporaries alive at once
-            # — measured OOM on a 16 GB chip (round 5). The blocked
-            # contraction emits (2, Kp, Cp) pair planes in-place, one
-            # output-row block at a time, bit-identical arithmetic.
-            xvp, m2p = padded_row_operands()
-            prod_pair = jax.vmap(
-                lambda a, b: _precise.blocked_pair_contract(a, b)
-            )(xvp, m2p)
-        else:
-            xvp, m2p = padded_row_operands()
-            prod64 = jax.vmap(
-                lambda a, b: contract(a, b, mode=config.matmul_mode)
-            )(xvp, m2p)
-        if not use_blocked:
-            # One (F, 2, Kp, Cp) pair buffer: the stack fuses into the pair
-            # split's producing pass, and the epilogue kernel writes its
-            # output into this same buffer (input_output_aliases) — at
-            # genomics-wide K each such buffer is >3 GB of HBM.
-            prod_pair = jnp.stack(df_from_f64(prod64), axis=1)
-
-    # Per-fold K/C vectors (REFERENCE form: p/q unscaled, stds in i1/i2).
-    i1 = i2 = p_vec = q_vec = None
-    if scale:
-        if config.scale_X:
-            i1 = (1.0 / X_std[:, 0, :]).astype(f64)
-        i2 = _xy_concat(
-            ((1.0 / X_std[:, 0, :]).astype(f64) if config.scale_X
-             else jnp.ones((f_folds, k), f64)) if return_XTX else None,
-            ((1.0 / Y_std[:, 0, :]).astype(f64) if config.scale_Y
-             else jnp.ones((f_folds, m), f64)) if return_XTY else None,
-        )
-    if center:
-        mX = X_mean[:, 0, :].astype(f64)
-        p_vec = sum_w_train.astype(f64)[:, None] * mX
-        q_vec = _xy_concat(
-            (mX if center_xtx else jnp.zeros((f_folds, k), f64))
-            if return_XTX else None,
-            (Y_mean[:, 0, :].astype(f64) if center_xty
-             else jnp.zeros((f_folds, m), f64)) if return_XTY else None,
-        )
-    kvec, cvec = _pack_kc_vectors(f_folds, kp, cp, scale=scale,
-                                  center=center, i1=i1, i2=i2,
-                                  p_vec=p_vec, q_vec=q_vec)
-
-    if total_planes is None:
-        total_planes = _total_planes(state, return_XTX, return_XTY, kp, cp,
-                                     presplit=False)
-
-    if use_fused:
-        pair_out = kernels.fused_ozaki_downdate_df64(
-            total_planes, sa, sb, pa, pb, kvec, cvec,
-            center=center, scale=scale, interpret=interpret,
-        )
-    else:
-        pair_out = kernels.fused_epilogue_df64(
-            total_planes, prod_pair, kvec, cvec,
-            center=center, scale=scale, block_k=blk, block_c=blk,
-            interpret=interpret,
-        )
-    return pair_out, stats, k, c
-
-
-def _f32_kernel_path(config, state, idx, mask, *, return_XTX, return_XTY,
-                     blocks_stats=None, interpret=False):
-    """f32 engine: MXU downdate kernel (reference operand form).
-
-    ``blocks_stats=(blocks, stats5)`` skips the gather (mesh path:
-    validation rows arrive pre-gathered from the row shards).
-    """
-    if blocks_stats is None:
-        blocks, stats5 = _gather_and_stats(
-            config, state, idx, mask, return_XTX, return_XTY
-        )
-    else:
-        blocks, stats5 = blocks_stats
-    X_mean, X_std, Y_mean, Y_std, sum_w_train = stats5
-    f_folds = blocks.Xv_w.shape[0]
-    stats = (X_mean, X_std, Y_mean, Y_std)
-    k = state.K
-
-    center_xtx = config.center_X
-    center_xty = config.center_X or config.center_Y
-    center = (return_XTX and center_xtx) or (return_XTY and center_xty)
-    scale = config.scale_X or (return_XTY and config.scale_Y)
-
-    m2 = []
-    total_parts = []
-    if return_XTX:
-        m2.append(blocks.Xv_u)
-        total_parts.append(state.XTX)
-    if return_XTY:
-        m2.append(blocks.Yv_u)
-        total_parts.append(state.XTY)
-    m2 = jnp.concatenate(m2, axis=2) if len(m2) > 1 else m2[0]
-    total = (
-        jnp.concatenate(total_parts, axis=1)
-        if len(total_parts) > 1 else total_parts[0]
-    )
-
-    a1 = mb = None
-    if center:
-        a1 = sum_w_train[:, None] * X_mean[:, 0, :]
-        mb_parts = []
-        if return_XTX:
-            mb_parts.append(
-                X_mean[:, 0, :] if center_xtx
-                else jnp.zeros((f_folds, k), config.dtype)
-            )
-        if return_XTY:
-            mb_parts.append(
-                Y_mean[:, 0, :] if center_xty
-                else jnp.zeros((f_folds, state.M), config.dtype)
-            )
-        mb = (
-            jnp.concatenate(mb_parts, axis=1)
-            if len(mb_parts) > 1 else mb_parts[0]
-        )
-    inv1 = inv2 = None
-    if scale:
-        inv1 = (
-            1.0 / X_std[:, 0, :] if config.scale_X
-            else jnp.ones((f_folds, k), config.dtype)
-        )
-        i2p = []
-        if return_XTX:
-            i2p.append(inv1)
-        if return_XTY:
-            i2p.append(
-                1.0 / Y_std[:, 0, :] if config.scale_Y
-                else jnp.ones((f_folds, state.M), config.dtype)
-            )
-        inv2 = jnp.concatenate(i2p, axis=1) if len(i2p) > 1 else i2p[0]
-    out = kernels.fused_downdate(
-        total, blocks.Xv_w, m2, a1, mb, inv1, inv2,
-        center=center, scale=scale, interpret=interpret,
-    ).astype(config.dtype)
-    if return_XTX and return_XTY:
-        return (out[:, :, :k], out[:, :, k:]), stats
-    return out, stats
-
-
-class OzakiSources(NamedTuple):
-    """Operands for the v3 fused Ozaki kernel (dataset slice planes).
-
-    ``saN``/``sbN_rev`` are SLICE-MAJOR (Sp, N, Kp/Cp) int8 planes sliced
-    ONCE per dataset against GLOBAL per-column scales (the B side in
-    reversed slice order — the kernel's prefix-stack layout);
-    :func:`gather_ozaki_rows` pulls a chunk's fold rows out of them with
-    one fused XLA gather per side. ``sxv`` carries exact per-fold X-side
-    validation column-sum pairs; ``yvec`` the (M-wide) Y-side statistic
-    vectors.
-    """
-
-    total2: jnp.ndarray
-    saN: jnp.ndarray      # (Sp, N, Kp) int8
-    sbN_rev: jnp.ndarray  # (Sp, N, Cp) int8, reversed slice order
-    pa: jnp.ndarray
-    pb: jnp.ndarray
-    gx: jnp.ndarray
-    sxv: jnp.ndarray      # (F, 2, Kp) f32 exact X colsum pairs
-    yvec: jnp.ndarray
-    ymask: jnp.ndarray
-    scal: jnp.ndarray
-    idx: jnp.ndarray   # (F, Lp) row indices, padded
-    mask2d: jnp.ndarray  # (F, Lp) 0/1 or None
-    lp: int
-
-    @property
-    def kp(self) -> int:
-        return self.total2.shape[1]
-
-    @property
-    def cp(self) -> int:
-        return self.total2.shape[2]
-
-
-def ozaki_v3_ok(config: CVConfig, state: FitState, return_XTX: bool,
-                return_XTY: bool, n_l: int) -> bool:
-    """Geometry gate for the v3 kernel: single square tile and a fold row
-    count whose single-f32 group sums stay exact (Sp * Lp * 65^2 < 2^24)."""
-    lp = _round_up(n_l, 32)
-    sp = kernels.ozaki_trim_groups(n_l)
-    return (
-        loocv_single_tile_ok(config, state, return_XTX, return_XTY)
-        and np.dtype(config.dtype).itemsize == 8
-        and config.matmul_mode in ("auto", "exact")
-        and _round_up(max(state.K, 8), 128) <= 512
-        and sp * lp * 65 * 65 < 2 ** 24
-    )
-
-
-class DatasetPlanes(NamedTuple):
-    """Slice-major int8 mantissa planes of the whole dataset.
-
-    Built ONCE per dataset with GLOBAL per-column scales and shared between
-    the fit contraction (:func:`contract_from_planes` — the fit products
-    ``WX^T [X|Y]`` use exactly these operands) and the v3 fold kernel
-    (:func:`prepare_ozaki_sources` trims them to the fold error budget).
-    """
-
-    saN: jnp.ndarray      # (S, N, Kp) int8, weighted X
-    sbN_rev: jnp.ndarray  # (S, N, Cp) int8, [X | Y], REVERSED slice order
-    pa: jnp.ndarray       # (2, Kp) f32 exact 2^e half-factors, A side
-    pb: jnp.ndarray       # (2, Cp) f32 half-factors, B side
-    kp: int
-    cp: int
-    with_y: bool          # whether sbN_rev carries the Y columns
-
-
-def dataset_planes(
-    config: CVConfig,
-    state: FitState,
-    *,
-    with_y: bool,
-    n_slices: int = 10,
-    kp: int = None,
-    cp: int = None,
-) -> DatasetPlanes:
-    """Slice the dataset into global-scale int8 planes (see DatasetPlanes)."""
-    from ..ops.precise import _column_scale, _mantissa_slices, _pow2
-
-    k = state.K
-    if kp is None:
-        kp = _round_up(max(k, 8), 128)
-    if cp is None:
-        cp = kp
-    f64 = jnp.float64
-
-    def slice_planes(mat_parts, width, reverse):
-        """[(mat, col0), ...] -> (S, N, width) int8 + (2, width) pow2."""
-        n = mat_parts[0][0].shape[0]
-        padded = jnp.zeros((n, width), f64)
-        for mat, col0 in mat_parts:
-            padded = padded.at[:, col0:col0 + mat.shape[1]].set(
-                mat.astype(f64))
-        e = _column_scale(padded)
-        scaled = padded * _pow2(-e)[None, :]
-        sl = _mantissa_slices(scaled, n_slices)
-        planes = jnp.stack(sl[::-1] if reverse else sl)
-        h1 = jnp.clip(e, -127, 127)
-        pows = jnp.stack([
-            jnp.ldexp(jnp.float32(1.0), h1),
-            jnp.ldexp(jnp.float32(1.0), e - h1),
-        ])
-        return planes, pows
-
-    X_w = state.WX if state.weights is not None else state.X
-    saN, pa = slice_planes([(X_w, 0)], kp, reverse=False)
-    b_parts = [(state.X, 0)]
-    if with_y:
-        b_parts.append((state.Y, k))
-    sbN_rev, pb = slice_planes(b_parts, cp, reverse=True)
-    return DatasetPlanes(saN, sbN_rev, pa, pb, kp, cp, with_y)
-
-
-def contract_from_planes(planes: DatasetPlanes) -> jnp.ndarray:
-    """Exact fused product ``WX^T [X|Y]`` -> (Kp, Cp) float64 from planes.
-
-    Identical arithmetic to :func:`cvmatrix_tpu.ops.precise.ozaki_contract`'s
-    same-exponent group path (prefix-stack int8 MXU products, exact int32
-    group sums per row chunk, float64 recombination) — but consuming the
-    ALREADY-SLICED dataset planes, so a fused fit+sweep pays the slicing
-    pass once (ref products: ``cvmatrix/cvmatrix.py:1215-1217``).
-    """
-    s_groups, n, kp = planes.saN.shape
-    cp = planes.sbN_rev.shape[2]
-    f64 = jnp.float64
-    # Row chunks sized so prefix-stack int32 group sums stay exact:
-    # s_groups * chunk * 65^2 < 2^31.
-    chunk = 1 << 15
-    acc = jnp.zeros((kp, cp), f64)
-    for start in range(0, max(n, 1), chunk):
-        stop = min(start + chunk, n)
-        rows = stop - start
-        sa_flat = planes.saN[:, start:stop].reshape(s_groups * rows, kp)
-        sb_flat = planes.sbN_rev[:, start:stop].reshape(s_groups * rows, cp)
-        for s in range(s_groups):
-            d32 = jax.lax.dot_general(
-                jax.lax.slice_in_dim(sa_flat, 0, (s + 1) * rows, axis=0),
-                jax.lax.slice_in_dim(
-                    sb_flat, (s_groups - 1 - s) * rows, s_groups * rows,
-                    axis=0,
-                ),
-                (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            acc = acc + d32.astype(f64) * (
-                2.0 ** (-float(kernels._OZAKI_T_BITS) * (s + 2.0))
-            )
-    scale_a = planes.pa[0].astype(f64) * planes.pa[1].astype(f64)
-    scale_b = planes.pb[0].astype(f64) * planes.pb[1].astype(f64)
-    return acc * (scale_a[:, None] * scale_b[None, :])
-
-
-def gather_ozaki_rows(saN, sbN_rev, rows, mask_rows=None):
-    """Gather fold rows from the slice-major dataset planes.
-
-    ``rows``: (R,) int32 flat fold-major row indices; ``mask_rows``: (R,)
-    0/1 (padded rows zeroed — they then contribute exactly nothing to the
-    products, the diagonal squared sums, or anything else the kernel
-    derives from the stacks). ONE fused gather per side replaces the v2
-    kernel's per-row scalar-prefetch DMAs.
-    """
-    sa = saN[:, rows]
-    if mask_rows is not None:
-        sa = jnp.where(mask_rows[None, :, None] > 0, sa,
-                       jnp.zeros_like(sa))
-    sb = sbN_rev[:, rows]
-    return sa, sb
-
-
-def prepare_ozaki_sources(
-    config: CVConfig,
-    state: FitState,
-    idx_batch,
-    mask_batch=None,
-    *,
-    return_XTX: bool = True,
-    return_XTY: bool = True,
-    planes: DatasetPlanes = None,
-) -> OzakiSources:
-    """Build dataset slice planes + per-fold vectors for the v3 kernel.
-
-    The dataset is sliced once with GLOBAL column scales (valid for every
-    fold: the downdate's error budget is absolute against the total, which
-    carries the global scale), keeping only the
-    :func:`~cvmatrix_tpu.ops.kernels.ozaki_trim_groups` product slices.
-    Exact X-side validation column sums, the (tiny) Y-side statistic
-    vectors and the O(F) scalars are computed per fold here, outside the
-    kernel.
-
-    ``planes``: optionally reuse :func:`dataset_planes` built with >= the
-    trim count of slices (a fused fit+sweep shares them with the fit
-    contraction); they are trimmed to the fold error budget here.
-    """
-    from .fold import FoldBlocks, _compute_training_stats
-
-    idx = jnp.asarray(idx_batch)
-    f_folds, n_l = idx.shape
-    lp = _round_up(n_l, 32)
-    n_sp = kernels.ozaki_trim_groups(n_l)
-    mask = (
-        None if mask_batch is None
-        else jnp.asarray(mask_batch, config.dtype).reshape(f_folds, n_l)
-    )
-    if lp != n_l:
-        # pad rows with index 0 + mask 0 (exactly zero contribution)
-        pad = lp - n_l
-        idx = jnp.concatenate(
-            [idx, jnp.zeros((f_folds, pad), idx.dtype)], axis=1)
-        base = jnp.ones((f_folds, n_l), config.dtype) if mask is None else mask
-        mask = jnp.concatenate(
-            [base, jnp.zeros((f_folds, pad), config.dtype)], axis=1)
-
-    k = state.K
-    m = state.M if return_XTY else 0
-    c = k + (m or 0) if return_XTY else k
-    kp = _round_up(max(k, 8), 128)
-    cp = kp
-    weighted = state.weights is not None
-    with_y = return_XTY
-    f64 = jnp.float64
-
-    if planes is None:
-        planes = dataset_planes(config, state, with_y=with_y,
-                                n_slices=n_sp, kp=kp, cp=cp)
-    # Trim to the fold error budget: the A side keeps the FIRST n_sp
-    # slices; the (reversed) B side keeps the LAST n_sp entries — slices
-    # n_sp-1 .. 0 in the prefix-stack order the kernel expects.
-    n_built = planes.saN.shape[0]
-    if n_built < n_sp:
-        raise ValueError(
-            f"shared dataset planes were built with {n_built} slices but "
-            f"this fold size needs {n_sp} (ozaki_trim_groups); rebuild "
-            f"dataset_planes with n_slices >= {n_sp}."
-        )
-    if with_y and not planes.with_y:
-        # Same shapes either way (Cp == Kp), but with_y=False planes carry
-        # zeros in the Y columns — the kernel would silently skip the
-        # XTY downdate.
-        raise ValueError(
-            "shared dataset planes were built with with_y=False but "
-            "return_XTY=True needs the Y columns; rebuild dataset_planes "
-            "with with_y=True."
-        )
-    saN = planes.saN if n_built == n_sp else planes.saN[:n_sp]
-    sbN_rev = (
-        planes.sbN_rev if n_built == n_sp
-        else planes.sbN_rev[n_built - n_sp:]
-    )
-    pa, pb = planes.pa, planes.pb
-    X_w = state.WX if weighted else state.X
-
-    center = config.center_X or (with_y and config.center_Y)
-    need_x_mean = center or config.scale_X
-    sxv = jnp.zeros((f_folds, 2, kp), jnp.float32)
-    if need_x_mean:
-        # Exact per-fold column sums of the (weighted, masked) validation
-        # rows — the kernel's stats input (v2 derived these from slice
-        # column sums in-kernel; precomputing the exact f64 sums here is
-        # both cheaper and closer to the XLA engine's arithmetic).
-        rows_all = idx.reshape(-1)
-        Xv = X_w[rows_all].reshape(f_folds, lp, k).astype(f64)
-        if mask is not None:
-            Xv = Xv * mask.astype(f64)[:, :, None]
-        csum = jnp.sum(Xv, axis=1)
-        hi, lo = df_from_f64(csum)
-        sxv = sxv.at[:, 0, :k].set(hi).at[:, 1, :k].set(lo)
-
-    need_y_stats = with_y and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-
-    gx = jnp.zeros((4, kp), jnp.float32)
-    if need_x_mean:
-        gx = _vec_pairs(state.sum_X, 0, kp, 0, gx)
-    if config.scale_X:
-        gx = _vec_pairs(state.sum_sq_X, 0, kp, 2, gx)
-
-    ymask = jnp.zeros((1, cp), jnp.float32)
-    yvec = jnp.zeros((f_folds, 2, 2, cp), jnp.float32)
-    if with_y:
-        ymask = ymask.at[:, k:k + m].set(1.0)
-        if need_y_stats:
-            # Y-side stats from the (M-wide) gathered validation rows only.
-            rows2d = idx.reshape(-1)
-            Yv_raw = (
-                state.WY if (weighted and config.needs_WY) else state.Y
-            )[rows2d].reshape(f_folds, lp, m)
-            Yv_u = state.Y[rows2d].reshape(f_folds, lp, m)
-            w_val = (
-                state.weights[rows2d].reshape(f_folds, lp, 1)
-                if weighted else None
-            )
-            mk = None if mask is None else mask
-
-            def one(yw_f, yu_f, w_f, mk_f):
-                blocks = FoldBlocks(
-                    Xv_w=jnp.zeros((lp, 1), config.dtype),
-                    Xv_u=jnp.zeros((lp, 1), config.dtype),
-                    Yv_w=yw_f if mk_f is None else yw_f * mk_f[:, None],
-                    Yv_u=yu_f,
-                    w_val=(
-                        None if w_f is None
-                        else (w_f if mk_f is None else w_f * mk_f[:, None])
-                    ),
-                    mask=mk_f,
-                )
-                return _compute_training_stats(
-                    config, state, blocks, check=False,
-                    return_X_mean=False, return_X_std=False,
-                    return_Y_mean=True, return_Y_std=config.scale_Y,
-                )
-
-            in_axes = (0, 0, None if w_val is None else 0,
-                       None if mk is None else 0)
-            _, _, Y_mean, Y_std, _ = jax.vmap(one, in_axes=in_axes)(
-                Yv_raw, Yv_u, w_val, mk)
-            qy = (
-                Y_mean[:, 0, :] if (config.center_X or config.center_Y)
-                else jnp.zeros((f_folds, m), config.dtype)
-            )
-            hi, lo = (
-                df_from_f64(qy) if qy.dtype == jnp.float64
-                else (qy.astype(jnp.float32), jnp.zeros_like(qy, jnp.float32))
-            )
-            yvec = yvec.at[:, 0, 0, k:k + m].set(hi)
-            yvec = yvec.at[:, 0, 1, k:k + m].set(lo)
-            i2y = (
-                (1.0 / Y_std[:, 0, :]).astype(f64) if config.scale_Y
-                else jnp.ones((f_folds, m), f64)
-            )
-            hi, lo = df_from_f64(i2y)
-            yvec = yvec.at[:, 1, 0, k:k + m].set(hi)
-            yvec = yvec.at[:, 1, 1, k:k + m].set(lo)
-        elif config.scale_X:
-            # i2 Y-part defaults to ones when only X is scaled
-            yvec = yvec.at[:, 1, 0, k:k + m].set(1.0)
-
-    scal = (
-        _fold_scalar_stream(config, state, idx.reshape(-1), mask, f_folds,
-                            lp, f64)
-        if (need_x_mean or need_y_stats)
-        else jnp.zeros((f_folds, 1, 128), jnp.float32)
-    )
-
-    total2 = _total_planes(state, return_XTX, return_XTY, kp, cp,
-                           presplit=False)
-    return OzakiSources(total2, saN, sbN_rev, pa, pb, gx, sxv, yvec, ymask,
-                        scal, idx, mask, lp)
-
-
-def ozaki_v3_from_sources(config: CVConfig, src: OzakiSources, rows=None,
-                          mask_rows=None, sxv_slice=None, scal_slice=None,
-                          yvec_slice=None, *, return_XTY: bool,
-                          interpret: bool = False):
-    """Gather + run the v3 fused Ozaki kernel on (a slice of) sources.
-
-    ``rows``/``mask_rows``: (F * Lp,) flat fold-major row indices and 0/1
-    validity (defaults: all folds in ``src``). The gather is plain XLA and
-    jit-fuses with the caller's chunk loop.
-    """
-    if rows is None:
-        rows = src.idx.reshape(-1).astype(jnp.int32)
-        if src.mask2d is not None and mask_rows is None:
-            mask_rows = src.mask2d.reshape(-1).astype(jnp.float32)
-    sa, sb = gather_ozaki_rows(src.saN, src.sbN_rev, rows, mask_rows)
-    # Symmetric-mirror variant (see loocv_sym_tile / the sym kernels):
-    # compute only i <= j tiles of the products + epilogue, transpose the
-    # mirrors. Same A/B knob as the LOOCV kernel.
-    bt_sym = loocv_sym_tile(src.kp) if _sym_enabled() else None
-    kern = (
-        kernels.fused_ozaki_downdate_v3 if bt_sym is None
-        else functools.partial(kernels.fused_ozaki_downdate_v3_sym,
-                               bt=bt_sym)
-    )
-    return kern(
-        src.total2, sa, sb, src.pa, src.pb, src.gx,
-        src.sxv if sxv_slice is None else sxv_slice,
-        src.yvec if yvec_slice is None else yvec_slice,
-        src.ymask,
-        src.scal if scal_slice is None else scal_slice,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        interpret=interpret,
-    )
-
-
-def _fold_scalar_stream_from_blocks(config, state, blocks, f_folds, n_l,
-                                    f64):
-    """(F, 1, 128) per-fold scalar pairs from pre-gathered blocks.
-
-    The from-blocks twin of :func:`_fold_scalar_stream` (same layout:
-    [sum_w_train, 1/sum_w_train, 1/std_divisor] as df pairs at columns
-    0/2/4) — the mesh fold path has the validation rows in hand, so the
-    weights come from ``blocks.w_val`` (already masked) instead of a
-    dataset gather. Reference scalars: ``cvmatrix/cvmatrix.py:589-630,
-    1045-1079``.
-    """
-    scal = jnp.zeros((f_folds, 1, 128), jnp.float32)
-    if blocks.w_val is not None:
-        wv = blocks.w_val[..., 0].astype(f64)  # (F, Lp), masked+padded zeros
-        sw_t = state.sum_w.astype(f64) - wv.sum(axis=1)
-        nnz_t = state.num_nonzero_w.astype(f64) - jnp.count_nonzero(
-            wv, axis=1
-        )
-    elif blocks.mask is not None:
-        sw_t = state.sum_w.astype(f64) - blocks.mask.astype(f64).sum(axis=1)
-        nnz_t = sw_t
-    else:
-        # Unweighted, unmasked: every fold removes exactly n_l unit rows
-        # (sum_w == nnz == N for unweighted fits, ref cvmatrix.py:1228-1229).
-        sw_t = jnp.broadcast_to(state.sum_w.astype(f64) - n_l, (f_folds,))
-        nnz_t = sw_t
-    divisor = (nnz_t - config.ddof) * sw_t / nnz_t
-    for col, val in ((0, sw_t), (2, 1.0 / sw_t), (4, 1.0 / divisor)):
-        hi, lo = df_from_f64(val)
-        scal = scal.at[:, 0, col].set(hi).at[:, 0, col + 1].set(lo)
-    return scal
-
-
-class OzakiBlockOperands(NamedTuple):
-    """Sliced v3 operands built from pre-gathered blocks (mesh/mid-band).
-
-    ``sa``/``sb_rev`` are (Sp, F * Lp, Kp/Cp) int8 row-major streams —
-    fold ``f``'s rows occupy ``[f * Lp, (f+1) * Lp)`` on axis 1, so chunk
-    slicing is contiguous. ``sxv``/``yvec``/``scal`` are the per-fold
-    vector streams; the rest is chunk-invariant."""
-
-    total2: jnp.ndarray
-    sa: jnp.ndarray
-    sb_rev: jnp.ndarray
-    pa: jnp.ndarray
-    pb: jnp.ndarray
-    gx: jnp.ndarray
-    sxv: jnp.ndarray
-    yvec: jnp.ndarray
-    ymask: jnp.ndarray
-    scal: jnp.ndarray
-    lp: int
-
-
-def ozaki_v3_run(config: CVConfig, ops: OzakiBlockOperands, sa, sb_rev,
-                 sxv, yvec, scal, *, return_XTY: bool,
-                 interpret: bool = False):
-    """Run the v3 kernel on (a chunk slice of) block-built operands."""
-    bt_sym = loocv_sym_tile(ops.total2.shape[1]) if _sym_enabled() else None
-    kern = (
-        kernels.fused_ozaki_downdate_v3 if bt_sym is None
-        else functools.partial(kernels.fused_ozaki_downdate_v3_sym,
-                               bt=bt_sym)
-    )
-    return kern(
-        ops.total2, sa, sb_rev, ops.pa, ops.pb, ops.gx, sxv, yvec,
-        ops.ymask, scal,
-        center_xtx=config.center_X,
-        center_xty=config.center_X or config.center_Y,
-        scale_x=config.scale_X,
-        scale_y=config.scale_Y,
-        with_y=return_XTY,
-        resolution=config.resolution,
-        interpret=interpret,
-    )
-
-
-def ozaki_v3_from_blocks(config: CVConfig, state: FitState, blocks, stats5,
-                         *, return_XTY: bool, interpret: bool = False):
-    """v3 fused Ozaki downdate for pre-gathered :class:`FoldBlocks`.
-
-    The mesh fold path's mid-band hot route: slices the chunk's validation
-    rows ONCE in bulk against chunk-global column scales (the same trimmed
-    :func:`~cvmatrix_tpu.ops.kernels.ozaki_trim_groups` budget as the
-    single-chip v3 sweep — chunk maxima are <= the dataset maxima, so the
-    dropped tail is <= the single-chip path's) and feeds the SAME
-    prefix-stack kernel. Replaces the generic per-fold
-    :func:`~cvmatrix_tpu.ops.precise.row_slice_operands` route, whose 10
-    untrimmed slice groups cost ~2x the MXU work in Lp-shallow products.
-
-    Callers must have checked :func:`ozaki_v3_ok`. Returns raw
-    (F, 2, Kp, Cp) double-float pairs.
-    """
-    ops = ozaki_operands_from_blocks(config, state, blocks, stats5,
-                                     return_XTY=return_XTY)
-    return ozaki_v3_run(config, ops, ops.sa, ops.sb_rev, ops.sxv, ops.yvec,
-                        ops.scal, return_XTY=return_XTY,
-                        interpret=interpret)
-
-
-def ozaki_operands_from_blocks(config: CVConfig, state: FitState, blocks,
-                               stats5, *, return_XTY: bool):
-    """Build :class:`OzakiBlockOperands` (see :func:`ozaki_v3_from_blocks`
-    for the slicing/accuracy rationale — this is its operand phase, split
-    out so hoisted sweeps build once and slice per chunk)."""
-    from ..ops.precise import row_slice_operands
-
-    f64 = jnp.float64
-    f_folds, n_l, k = blocks.Xv_w.shape
-    m = state.M if return_XTY else 0
-    lp = _round_up(n_l, 32)
-    n_sp = kernels.ozaki_trim_groups(n_l)
-    kp = _round_up(max(k, 8), 128)
-    cp = kp
-    with_y = return_XTY
-
-    def pad_rows_cols(mat_parts, width):
-        """[(F, n_l, w), ...] -> (F, lp, width) zero-padded f64."""
-        out = jnp.zeros((f_folds, lp, width), f64)
-        col = 0
-        for mat in mat_parts:
-            out = out.at[:, :n_l, col:col + mat.shape[2]].set(
-                mat.astype(f64))
-            col += mat.shape[2]
-        return out
-
-    # A side: weighted, masked rows (masked/padded rows slice to exact
-    # zeros, contributing nothing to products or the diagonal squared
-    # sums — the gather_ozaki_rows masking contract).
-    Xw = pad_rows_cols([blocks.Xv_w], kp)
-    m2 = pad_rows_cols(
-        [blocks.Xv_u] + ([blocks.Yv_u] if with_y else []), cp)
-    sa, pa = row_slice_operands(Xw.reshape(f_folds * lp, kp),
-                                n_slices=n_sp)
-    sbf, pb = row_slice_operands(m2.reshape(f_folds * lp, cp),
-                                 n_slices=n_sp)
-    sb_rev = sbf[::-1]
-
-    center = config.center_X or (with_y and config.center_Y)
-    need_x_mean = center or config.scale_X
-    need_y_stats = with_y and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-
-    sxv = jnp.zeros((f_folds, 2, kp), jnp.float32)
-    if need_x_mean:
-        hi, lo = df_from_f64(jnp.sum(Xw, axis=1))
-        sxv = sxv.at[:, 0].set(hi).at[:, 1].set(lo)
-
-    gx = jnp.zeros((4, kp), jnp.float32)
-    if need_x_mean:
-        gx = _vec_pairs(state.sum_X, 0, kp, 0, gx)
-    if config.scale_X:
-        gx = _vec_pairs(state.sum_sq_X, 0, kp, 2, gx)
-
-    ymask = jnp.zeros((1, cp), jnp.float32)
-    yvec = jnp.zeros((f_folds, 2, 2, cp), jnp.float32)
-    if with_y:
-        ymask = ymask.at[:, k:k + m].set(1.0)
-        if need_y_stats:
-            # Y-side vectors straight from the already-computed fold stats
-            # (prepare_ozaki_sources recomputes them only because it has no
-            # stats5 in hand).
-            _, _, Y_mean, Y_std, _ = stats5
-            qy = (
-                Y_mean[:, 0, :].astype(f64)
-                if (config.center_X or config.center_Y)
-                else jnp.zeros((f_folds, m), f64)
-            )
-            hi, lo = df_from_f64(qy)
-            yvec = yvec.at[:, 0, 0, k:k + m].set(hi)
-            yvec = yvec.at[:, 0, 1, k:k + m].set(lo)
-            i2y = (
-                (1.0 / Y_std[:, 0, :]).astype(f64) if config.scale_Y
-                else jnp.ones((f_folds, m), f64)
-            )
-            hi, lo = df_from_f64(i2y)
-            yvec = yvec.at[:, 1, 0, k:k + m].set(hi)
-            yvec = yvec.at[:, 1, 1, k:k + m].set(lo)
-        elif config.scale_X:
-            yvec = yvec.at[:, 1, 0, k:k + m].set(1.0)
-
-    scal = (
-        _fold_scalar_stream_from_blocks(config, state, blocks, f_folds,
-                                        n_l, f64)
-        if (need_x_mean or need_y_stats)
-        else jnp.zeros((f_folds, 1, 128), jnp.float32)
-    )
-
-    total2 = _total_planes(state, True, return_XTY, kp, cp, presplit=False)
-    return OzakiBlockOperands(total2, sa, sb_rev, pa, pb, gx, sxv, yvec,
-                              ymask, scal, lp)
-
-
-def loocv_sources_from_blocks(config: CVConfig, state: FitState, blocks,
-                              *, return_XTY: bool) -> LoocvSources:
-    """:class:`LoocvSources` for pre-gathered single-row :class:`FoldBlocks`.
-
-    The mesh LOOCV fold path: the all-in-one LOOCV kernels gather rows by
-    index from dataset-wide streams, and a chunk of gathered blocks IS such
-    a stream (one row per fold) — so the kernel runs unchanged with
-    ``rows = arange(F)``. Globals (sums, totals) come from the replicated
-    fitted state; row streams from the blocks. Mirrors
-    :func:`prepare_loocv_sources` exactly (same aliasing rules, same packed
-    layouts); masks are unsupported here (a masked single-row fold is
-    degenerate — callers gate on ``blocks.mask is None``).
-    """
-    if blocks.mask is not None:
-        raise ValueError("mask batches cannot route the fused LOOCV kernel")
-    f_folds = blocks.Xv_w.shape[0]
-    k = state.K
-    m = state.M if return_XTY else 0
-    kp = _round_up(max(k, 8), 128)
-    cp = kp
-    # Weightedness from the BLOCKS, not the state: the mesh fold math runs
-    # on a globals-only state whose data fields (incl. weights) are
-    # stripped (parallel.distributed._globals_only) — state.weights is
-    # None there even for weighted fits.
-    weighted = blocks.w_val is not None
-    with_y = return_XTY
-    f64 = (
-        jnp.float64 if np.dtype(config.dtype).itemsize == 8 else jnp.float32
-    )
-
-    xw = _row_pairs(blocks.Xv_w[:, 0, :], 0, kp)
-    xu = _row_pairs(blocks.Xv_u[:, 0, :], 0, kp) if weighted else xw
-
-    center = config.center_X or (with_y and config.center_Y)
-    need_x_mean = center or config.scale_X
-    need_y_stats = with_y and (
-        config.center_X or config.center_Y or config.scale_Y
-    )
-    if with_y:
-        yu = _row_pairs(blocks.Yv_u[:, 0, :], k, cp)
-        yw = (
-            _row_pairs(blocks.Yv_w[:, 0, :], k, cp)
-            if (weighted and need_y_stats) else yu
-        )
-        ymask = jnp.zeros((1, cp), jnp.float32).at[:, k:k + m].set(1.0)
-        gy = jnp.zeros((4, cp), jnp.float32)
-        if need_y_stats:
-            gy = _vec_pairs(state.sum_Y, k, cp, 0, gy)
-        if config.scale_Y:
-            gy = _vec_pairs(state.sum_sq_Y, k, cp, 2, gy)
-    else:
-        yu = yw = jnp.zeros((1, 2, cp), jnp.float32)
-        ymask = jnp.zeros((1, cp), jnp.float32)
-        gy = jnp.zeros((4, cp), jnp.float32)
-
-    gx = jnp.zeros((4, kp), jnp.float32)
-    if need_x_mean:
-        gx = _vec_pairs(state.sum_X, 0, kp, 0, gx)
-    if config.scale_X:
-        gx = _vec_pairs(state.sum_sq_X, 0, kp, 2, gx)
-
-    scal = (
-        _fold_scalar_stream_from_blocks(config, state, blocks, f_folds, 1,
-                                        f64)
-        if (need_x_mean or need_y_stats)
-        else jnp.zeros((f_folds, 1, 128), jnp.float32)
-    )
-    mrow = jnp.zeros((1, 1, 1, 128), jnp.float32)
-    scale = config.scale_X or (with_y and config.scale_Y)
-    presplit = scale and np.dtype(config.dtype).itemsize == 8
-    total4 = _total_planes(state, True, return_XTY, kp, cp,
-                           presplit=presplit)
-    return LoocvSources(total4, xw, xu, yu, yw, gx, gy, ymask, scal, mrow)
+    return jax.vmap(one)(blocks)

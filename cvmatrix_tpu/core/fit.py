@@ -6,13 +6,13 @@ Reproduces the semantics of the reference fit stack
 ``_init_stats`` :1219) as a single pure function producing a
 :class:`~cvmatrix_tpu.core.state.FitState`.
 
-TPU-first design notes:
+Design notes:
 - The two global products ``XTX = WX^T X`` and ``XTY = WX^T Y`` are fused
   into ONE contraction over ``[X | Y]`` so the (large) ``WX`` operand
-  streams from HBM once. Per-output-column results are identical to
-  separate products.
-- Contractions route through :func:`cvmatrix_tpu.ops.precise.contract`,
-  which on TPU float64 uses the exact int8-slice MXU path (see that module).
+  streams from device memory once. Per-output-column results are identical
+  to separate products.
+- Contractions route through :func:`cvmatrix_tpu.ops.precise.contract`
+  (a native float64 ``dot_general`` unless ``matmul_mode="exact"``).
 - Under a ``jax.sharding`` mesh with ``X``/``Y``/``weights`` row-sharded,
   this same function compiles to per-shard partial products + an XLA
   ``psum`` over the row axis — no separate distributed code path is needed
@@ -53,17 +53,12 @@ def fit(
     weights: Optional[object] = None,
     *,
     validate: bool = True,
-    products: Optional[tuple] = None,
 ) -> FitState:
     """Compute the dataset-wide products and statistics.
 
     Raises ``ValueError`` for negative weights when values are concrete
     (ref :1186-1189); under tracing the check is skipped (host pre-flight
     contract, ref :620-624).
-
-    ``products``: optional precomputed ``(XTX, XTY)`` (XTY may be None) —
-    used by the fused fit+sweep driver, which derives the products from
-    the shared dataset slice planes instead of a second contraction.
     """
     dtype = config.dtype
     X = _init_mat(X, dtype)
@@ -85,9 +80,7 @@ def fit(
     # Global products (ref :1209-1217), fused over [X | Y]. The X block of
     # the fused product is symmetric (X^T W X), which the exact path
     # exploits at wide K (SYRK block skipping, see ops.precise.contract).
-    if products is not None:
-        XTX, XTY = products
-    elif Y_arr is not None:
+    if Y_arr is not None:
         prod = contract(WX, jnp.concatenate([X, Y_arr], axis=1),
                         mode=config.matmul_mode, symmetric_k=X.shape[1],
                         unweighted_x=w is None)

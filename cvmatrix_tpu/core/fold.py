@@ -13,21 +13,20 @@ applying the weighted centering/scaling corrections as a rank-one mean term
 and an outer-product std divide — per-fold cost is independent of the
 training-set size.
 
-Layering (TPU-first): the fold math is split into
+Layering: the fold math is split into
   1. :func:`gather_val_blocks` — row gathers of the validation block, and
   2. :func:`training_matrices_from_blocks` — fold math on gathered blocks
      plus the small replicated globals,
-so that on a device mesh step 1 can run as a shard-local mask-and-psum
+so that on a device mesh step 1 can run as a shard-local mask-and-reduce
 (``parallel/``) while step 2 runs fold-sharded, without duplicating any of
 the numerics.
 
-TPU-first deviations (bit-compatible):
+Deviations from the reference (bit-compatible):
 - The two downdate products share one contraction over ``[X_val | Y_val]``
   (one pass over the gathered validation rows).
 - Rank-one terms ``mean_X^T @ mean_2`` are computed as broadcasted
   elementwise outer products, not 1-contractions — mathematically identical,
-  and on TPU they stay on the *accurate* f64 elementwise path instead of the
-  f32-accurate f64 ``dot`` lowering.
+  and XLA fuses them into the epilogue instead of launching a matmul.
 - Squared validation rows are recomputed from the gathered rows instead of
   gathering a materialised ``sq_X`` (see ``FitState`` docstring).
 - A ``mask`` argument (no reference equivalent) supports padding fold-index
@@ -285,7 +284,7 @@ def training_matrices_from_blocks(
     if return_XTX and return_XTY:
         m2 = jnp.concatenate([blocks.Xv_u, blocks.Yv_u], axis=1)
         # The leading (K, K) downdate block is sum w x x^T — symmetric, so
-        # wide-K exact contractions ride the SYRK route like the fit's.
+        # wide-K exact-mode contractions ride the SYRK route like the fit's.
         prod = contract(blocks.Xv_w, m2, mode=config.matmul_mode,
                         symmetric_k=blocks.Xv_u.shape[1])
         k = blocks.Xv_u.shape[1]

@@ -11,7 +11,7 @@ statistics the 16 center/scale combinations actually need are materialised,
 ``cvmatrix/cvmatrix.py:1219-1243``); absent statistics are ``None`` (empty
 pytree subtrees).
 
-TPU-first deviation: the reference materialises the weighted squared
+Deviation: the reference materialises the weighted squared
 matrices ``sq_X = WX * X`` and ``sq_Y = WY * Y`` (N x K / N x M) so it can
 gather their validation rows per fold (``cvmatrix/cvmatrix.py:727,737,
 1235,1240``). We do not: the per-fold code recomputes squared rows from the

@@ -64,8 +64,8 @@ class CVMatrix:
     ) -> None:
         if backend != "jax":
             raise ValueError(
-                f"Invalid backend: {backend!r}. This engine is TPU/JAX-native; "
-                "only backend='jax' is supported (it runs on CPU/GPU/TPU)."
+                f"Invalid backend: {backend!r}. This engine is JAX-native; "
+                "only backend='jax' is supported (it runs on CPU and GPU)."
             )
         self.config = CVConfig(
             center_X=center_X,
@@ -249,8 +249,8 @@ class CVMatrix:
     def cross_validate_reduce(self, partitioner, *, reduce_fn, **kw):
         """Device-resident sweep over ALL folds of ``partitioner``.
 
-        One compiled program computes every fold's training matrices (via
-        the fused Pallas kernels on TPU) and immediately consumes them with
+        One compiled program computes every fold's training matrices and
+        immediately consumes them with
         ``reduce_fn(matrices, stats)`` — only the reductions come back.
         Returns ``(fold_keys, stacked_reductions)``. No reference
         equivalent (the reference leaves fold batching to the caller); see

@@ -1,4 +1,4 @@
-"""Fold -> validation-index bookkeeping (Algorithm 1) plus TPU batching.
+"""Fold -> validation-index bookkeeping (Algorithm 1) plus fold batching.
 
 Re-design of the reference ``Partitioner`` (``cvmatrix/partitioner.py:22-107``):
 same public surface (``folds_dict``, ``get_validation_indices``, ValueError on
@@ -6,7 +6,7 @@ unknown folds), built with a vectorised O(N log N) numpy path instead of a
 Python append loop (the reference is O(N) python-object work per row, which
 dominates at N in the millions).
 
-TPU additions (no reference equivalent; the reference leaves batching to the
+Batching additions (no reference equivalent; the reference leaves batching to the
 caller, e.g. ``benchmarks/benchmark.py:144-152``):
 
 - :meth:`size_buckets` — group folds by validation-set size so each bucket
@@ -113,7 +113,7 @@ class Partitioner:
         return {k: np.asarray(ix, dtype=int) for k, ix in acc.items()}
 
     # ------------------------------------------------------------------ #
-    # TPU batching surface                                                #
+    # Batching surface                                                    #
     # ------------------------------------------------------------------ #
 
     @property

@@ -1,25 +1,19 @@
-"""High-precision ``A^T @ B`` contractions for TPU.
+"""``A^T @ B`` contractions: native float64, or an exact int8-slice scheme.
 
-Why this module exists
-----------------------
-The reference engine (``/root/reference/cvmatrix/cvmatrix.py:1215-1217`` for the
-fit products, ``:1001`` for the per-fold downdate products) runs in NumPy
-float64, and its test contract demands 1e-8-level agreement. TPUs have no
-float64 MXU: XLA *emulates* float64 elementwise ops accurately (double-word
-f32 pairs), but lowers float64 ``dot`` to an ~f32-accurate MXU pass
-(measured ~6e-8 relative error). Elementwise/reduce float64 is ~1e-15
-accurate. So the only primitive we must replace to get f64-grade results on
-TPU is the matmul itself.
+The reference engine (ref ``cvmatrix/cvmatrix.py:1215-1217`` for the fit
+products, ``:1001`` for the per-fold downdate products) runs in NumPy
+float64, and its test contract demands 1e-8-level agreement.
+:func:`contract` is the single entry point for both. Its default
+(``mode="auto"`` or ``"native"``) is one ``dot_general`` at
+``Precision.HIGHEST``: native float64 on CPU and GPU (cuBLAS DGEMM behind
+XLA), and full float32 (never TF32) for float32 engines.
 
-The fix is an Ozaki-scheme contraction on the int8 MXU: slice each operand's
+``mode="exact"`` is an Ozaki-scheme contraction instead: slice each operand's
 mantissa into exact 6-bit integer chunks (stored as int8), take all
 significant chunk-pair products with ``int8 x int8 -> int32`` matmuls (exact
-integer arithmetic on the MXU), and recombine the partial products in float64
-(accurate elementwise emulation). The result carries ~2^-54 relative error —
-float64-grade — while all the heavy lifting runs at int8 MXU throughput.
-
-This is new TPU-native work: the reference has no native code and no analogue
-of this component (SURVEY.md §0, §2).
+integer arithmetic), and recombine the partial products in float64. The
+result carries ~2^-54 relative error, independent of how the backend rounds
+float64 products. It is plain ``jax.numpy``/``lax``.
 """
 
 from __future__ import annotations
@@ -31,7 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["contract", "ozaki_contract", "outer_accumulate_contract",
-           "row_slice_operands", "symmetric_contract"]
+           "symmetric_contract"]
 
 # Bits per mantissa slice. Slice values lie in [-2^T_BITS, 2^T_BITS] and fit
 # int8; a product of two slices fits 2*T_BITS+1 bits, leaving int32 headroom
@@ -56,10 +50,8 @@ def _mantissa_slices(x: jax.Array, n_slices: int):
     below ``2**(-T_BITS * n_slices)`` relative to the pre-scaling column max.
 
     All arithmetic here is exact in float64 (multiply by a power of two,
-    round, subtract), and every op is elementwise — the class of f64 ops the
-    TPU X64 rewriter emulates accurately. The int8 cast routes through
-    float32 (exact for these small integers) because direct f64->s8
-    conversion would require s64 bit ops the TPU rewriter lacks.
+    round, subtract), and every op is elementwise. The int8 cast routes
+    through float32, which is exact for these small integers.
     """
     out = []
     r = x
@@ -74,14 +66,12 @@ def _mantissa_slices(x: jax.Array, n_slices: int):
 def _pow2(e: jax.Array) -> jax.Array:
     """Exact float64 ``2.0**e`` for int32 ``e`` across the full f64 range.
 
-    Built from float32 ``ldexp`` (s32 bit ops, TPU-safe) factors of at most
+    Built from float32 ``ldexp`` factors of at most
     2^±126 each — jax's f32 ldexp flushes subnormals, so 2^-127 would be 0
     — multiplied in float64: a product of exact powers of two is exact,
     and chunking covers |e| up to 9 * 126 = 1134 (the entire f64 exponent
     range; beyond it the product over/underflows to inf/0, which is also
-    the correct f64 answer for the rescale it feeds). The f64
-    ``ldexp``/``frexp`` primitives are avoided entirely: they lower to s64
-    ``bitcast_convert``, which the TPU X64 rewriter does not support.
+    the correct f64 answer for the rescale it feeds).
     """
     rem = e
     out = None
@@ -135,8 +125,8 @@ def ozaki_contract(
     """Compute ``a.T @ b`` (contraction over axis 0) to ~f64 accuracy.
 
     ``a``: (N, K), ``b``: (N, M), float64 (or float32). Heavy compute runs as
-    exact int8 x int8 -> int32 MXU matmuls; recombination is elementwise
-    float64 (accurately emulated on TPU).
+    exact int8 x int8 -> int32 matmuls; recombination is elementwise
+    float64.
     """
     if out_dtype is None:
         out_dtype = a.dtype
@@ -196,17 +186,16 @@ def ozaki_contract(
         return (acc + d32.astype(f64) * sc, sa, sb), None
 
     def group_prefix_sum(acc, sa, sb_rev_stack, rows):
-        # Same-exponent groups, restructured for the MXU: group s's sum
+        # Same-exponent groups as few long matmuls: group s's sum
         # ``sum_i sa_i^T @ sb_{s-i}`` equals ONE matmul between contiguous
         # prefix/suffix slices of the stacked slice arrays —
         # ``sa_all[: (s+1) rows].T @ sb_rev[(S-1-s) rows :]`` — because
         # row-block i of the prefix meets row-block (s-i) of the
         # reversed-and-right-aligned suffix. Contractions grow from ``rows``
-        # to ``S*rows`` instead of 55 short-contraction products: ~35% faster
-        # at fold scale, bit-identical (int32 sums are exact either way,
-        # valid for row counts <= _GROUP_CHUNK). One f64 convert+scale+add
-        # per group — ~5x less emulated-f64 recombination work than per-pair
-        # accumulation.
+        # to ``S*rows`` instead of 55 short-contraction products,
+        # bit-identical (int32 sums are exact either way, valid for row
+        # counts <= _GROUP_CHUNK). One f64 convert+scale+add per group — ~5x
+        # less recombination work than per-pair accumulation.
         s_groups = sa.shape[0]
         sa_all = sa.reshape(s_groups * rows, sa.shape[2])
         # sb arrives stacked in REVERSED slice order (reversing the Python
@@ -275,17 +264,17 @@ def symmetric_contract(
     ``b[:, :k]`` the unweighted twin of ``a``, so ``(a.T @ b)[:, :k]`` is
     symmetric (the fit products, ref ``cvmatrix/cvmatrix.py:1215-1217``).
     Only the upper-triangular column-block pairs of the X block are
-    computed — one :func:`ozaki_contract`-grade int8-MXU contraction per
+    computed — one :func:`ozaki_contract`-grade int8 contraction per
     pair, scanned so the trace stays one block pair deep — and the strict
     lower blocks are mirrored. At ``B`` column blocks this skips
-    ``(B-1)/2B`` of the MXU work (~45% at B=10), which dominates at
+    ``(B-1)/2B`` of the matmul work (~45% at B=10), which dominates at
     genomics-wide ``k``.
 
     ``unweighted_x``: assert that ``b[:, :k]`` is *the same values* as ``a``
     (the unweighted fit, where ``WX`` aliases ``X`` — ref
     ``cvmatrix/cvmatrix.py:1200-1203``). The column exponents, rescale and
     mantissa slicing of the X block are then computed ONCE and shared by
-    both operands, halving the slicing subgraph (trace + the emulated-f64
+    both operands, halving the slicing subgraph (trace + the f64
     elementwise work, which at genomics-wide ``k`` is gigabytes per pass).
 
     Accuracy: identical arithmetic to :func:`ozaki_contract` per computed
@@ -304,7 +293,7 @@ def symmetric_contract(
     # Equalize block widths over the block count instead of fixing cb at
     # col_block: with cb = col_block, k just above a block multiple (e.g.
     # k = 2049) padded the last block to a full col_block and the
-    # upper-triangular pass did ~3x MORE MXU work than a plain full
+    # upper-triangular pass did ~3x MORE matmul work than a plain full
     # contraction. With nb equal blocks of ~k/nb columns the mirrored
     # cost is (nb+1)/(2 nb) of the full product for every k — always a
     # saving at nb >= 2.
@@ -348,8 +337,9 @@ def symmetric_contract(
         sb_ij = jax.lax.dynamic_slice_in_dim(sb_flat, bj, cb, axis=1)
         # Dots first, recombination chained after (same left-fold order —
         # bit identical): each dot is a fusion barrier, so interleaving
-        # the adds would round-trip the f64 tile through HBM per group
-        # (see blocked_pair_contract for the full rationale).
+        # the adds would round-trip the f64 tile through device memory per
+        # group; chaining them afterwards fuses the recombination into one
+        # output pass.
         d32s = [
             jax.lax.dot_general(
                 jax.lax.slice_in_dim(sa_ij, 0, (s + 1) * rows, axis=0),
@@ -409,7 +399,7 @@ def symmetric_contract(
         sa = jnp.stack(sl_a)
         # Unweighted: the X block's slices ARE a's slices — restack the same
         # list reversed (a second concat of existing buffers) instead of
-        # re-slicing the whole block through 10 more emulated-f64 passes.
+        # re-slicing the whole block through 10 more f64 passes.
         sl_bx = (sl_a if unweighted_x
                  else _mantissa_slices(bx_scaled[start:stop], n_slices))
         sb_rev = jnp.stack(sl_bx[::-1])
@@ -468,107 +458,11 @@ def _round_up_pow2_cap(k: int) -> int:
     return max(128, ((k + 127) // 128) * 128)
 
 
-def blocked_pair_contract(
-    a: jax.Array,
-    b: jax.Array,
-    *,
-    block_rows: int = 2048,
-    n_slices: int = _N_SLICES,
-) -> jax.Array:
-    """``a.T @ b`` as ``(2, Ka, Cb)`` f32 double-float pair planes, blocked.
-
-    The genomics-wide fold downdate (``(20k, 20k)`` per-fold products,
-    ref ``cvmatrix/cvmatrix.py:1001``) cannot afford a materialised f64
-    product: at K=20k one product is ~3.2 GB and the straightforward
-    ``contract`` + pair-split route keeps several output-sized
-    temporaries alive at once (measured OOM on a 16 GB chip, round 5).
-    This variant computes output-row blocks of ``a``'s columns one scan
-    step at a time — b's mantissa slices are built ONCE and shared by all
-    blocks — converts each f64 block to a double-float (hi, lo) pair
-    immediately, and writes it in-place into the one ``(2, Ka, Cb)`` f32
-    result buffer (the layout the fused epilogue kernel consumes, so the
-    caller needs no further stack/pad pass).
-
-    Arithmetic per block is identical to :func:`ozaki_contract`'s
-    same-exponent group path (exact int32 prefix sums, one f64
-    recombination per group), so the result is bit-identical to the
-    unblocked contraction. Requires ``a.shape[0] <= _GROUP_CHUNK`` (one
-    row chunk — validation blocks are) and ``Ka``/``block_rows`` multiples
-    of 128; a ragged final block is handled as a static tail step.
-    """
-    n, ka = a.shape
-    cb_ = b.shape[1]
-    assert n <= _GROUP_CHUNK, (n, _GROUP_CHUNK)
-    f64 = jnp.float64
-    e_a = _column_scale(a)
-    e_b = _column_scale(b)
-    a_s = a.astype(f64) * _pow2(-e_a)[None, :]
-    b_s = b.astype(f64) * _pow2(-e_b)[None, :]
-    sa_flat = jnp.stack(_mantissa_slices(a_s, n_slices)).reshape(
-        n_slices * n, ka
-    )
-    sb_flat = jnp.stack(
-        _mantissa_slices(b_s, n_slices)[::-1]
-    ).reshape(n_slices * n, cb_)
-    group_scale = [2.0 ** (-_T_BITS * (s + 2.0)) for s in range(n_slices)]
-
-    def block(buf, c0, rows_blk):
-        sa_blk = jax.lax.dynamic_slice(
-            sa_flat, (jnp.int32(0), c0), (n_slices * n, rows_blk)
-        )
-        # All group dots FIRST, then one chained recombination: each dot
-        # is a fusion barrier, so the interleaved add-after-every-dot form
-        # round-trips the f64 accumulator through HBM once per group.
-        # Chaining the adds afterwards (same left-fold order — bit
-        # identical) fuses the whole recombination into ONE output pass;
-        # the int32 products it keeps alive are block-sized (~0.17 GB
-        # each at the genomics shape), not output-sized.
-        d32s = [
-            jax.lax.dot_general(
-                jax.lax.slice_in_dim(sa_blk, 0, (s + 1) * n, axis=0),
-                jax.lax.slice_in_dim(
-                    sb_flat, (n_slices - 1 - s) * n, n_slices * n, axis=0
-                ),
-                (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            for s in range(n_slices)
-        ]
-        acc = d32s[0].astype(f64) * group_scale[0]
-        for s in range(1, n_slices):
-            acc = acc + d32s[s].astype(f64) * group_scale[s]
-        e_blk = jax.lax.dynamic_slice_in_dim(e_a, c0, rows_blk)
-        # Exponent SUM inside one _pow2 (the factored 2^ea * 2^eb form
-        # can produce inf * 0 -> NaN when the factors individually
-        # over/underflow while the sum is in range).
-        out = acc * _pow2(e_blk[:, None] + e_b[None, :])
-        hi = out.astype(jnp.float32)
-        lo = (out - hi.astype(f64)).astype(jnp.float32)
-        return jax.lax.dynamic_update_slice(
-            buf, jnp.stack([hi, lo]), (jnp.int32(0), c0, jnp.int32(0))
-        )
-
-    bk = min(block_rows, ka)
-    nb_full = ka // bk
-    rem = ka - nb_full * bk
-    buf = jnp.zeros((2, ka, cb_), jnp.float32)
-
-    def step(carry, i):
-        return block(carry, i * bk, bk), None
-
-    buf, _ = jax.lax.scan(
-        step, buf, jnp.arange(nb_full, dtype=jnp.int32)
-    )
-    if rem:
-        buf = block(buf, jnp.int32(nb_full * bk), rem)
-    return buf
-
-
 def outer_accumulate_contract(a: jax.Array, b: jax.Array) -> jax.Array:
     """``a.T @ b`` as a scan of rank-one outer-product updates.
 
-    Avoids ``dot_general`` entirely, so on TPU every multiply/add runs through
-    the *accurate* float64 elementwise emulation. Intended for small
+    Avoids ``dot_general`` entirely: every multiply/add is an elementwise
+    float64 operation. Used by the exact mode for small
     contraction lengths (per-fold validation blocks: N_val of a few rows, the
     LOOCV case being N_val = 1), where mantissa slicing would be overhead and
     a scan of length N_val is cheap. Exact same result order as a sequential
@@ -587,7 +481,7 @@ def outer_accumulate_contract(a: jax.Array, b: jax.Array) -> jax.Array:
     return acc
 
 
-def _use_exact(mode: str, dtype) -> bool:
+def _use_exact(mode: str) -> bool:
     if mode == "exact":
         return True
     if mode == "native":
@@ -598,11 +492,7 @@ def _use_exact(mode: str, dtype) -> bool:
         raise ValueError(
             f"Unknown matmul mode: {mode!r} (auto|exact|native)."
         )
-    # auto: the native XLA f64 dot is only ~f32-accurate on TPU; everywhere
-    # else (CPU f64, or f32 anywhere) the native dot is the right call.
-    return (
-        np.dtype(dtype).itemsize >= 8 and jax.default_backend() == "tpu"
-    )
+    return False  # auto: the native dot is float64 on CPU and GPU
 
 
 # Minimum symmetric-block width for the SYRK route: below ~2048 there is a
@@ -633,12 +523,12 @@ def contract(
     values as ``a`` (unweighted fit: WX aliases X, ref :1200-1203), letting
     the SYRK path slice the X mantissas once for both operands.
     """
-    if _use_exact(mode, a.dtype):
+    if _use_exact(mode):
         if a.shape[0] <= small_n_threshold:
             return outer_accumulate_contract(a, b)
         if symmetric_k is not None and symmetric_k >= _SYRK_MIN_K:
-            # Wide k is MXU-bound; skipping the lower-triangular column
-            # block pairs saves (B-1)/2B of the MXU work.
+            # Wide k is matmul-bound; skipping the lower-triangular column
+            # block pairs saves (B-1)/2B of the matmul work.
             return symmetric_contract(a, b, symmetric_k,
                                       unweighted_x=unweighted_x)
         return ozaki_contract(a, b)
@@ -648,29 +538,3 @@ def contract(
         (((0,), (0,)), ((), ())),
         precision=jax.lax.Precision.HIGHEST,
     )
-
-
-def row_slice_operands(x: jax.Array, n_slices: int = _N_SLICES):
-    """Mantissa slices + exact 2^e half-factors for one fold's row block.
-
-    ``x``: (L, K) float64 (rows already padded as the caller requires).
-    Returns ``(slices (S, L, K) int8, pows (2, K) f32)`` with
-    ``pows[0] * pows[1] == 2^e`` exactly (two factors because a single one
-    can exceed the f32 exponent range). Feeds
-    :func:`cvmatrix_tpu.ops.kernels.fused_ozaki_downdate_df64`.
-
-    Domain: the KERNEL operand layout carries exactly two f32 half-factors,
-    so |e| <= 254 — i.e. |x| within ~(2^-252, 2^126). CV-scale data is many
-    decades inside this; data beyond it must use :func:`contract` (whose
-    :func:`_pow2` rescale covers the full f64 range).
-    """
-    e = _column_scale(x)
-    xs = x * _pow2(-e)[None, :]
-    sl = jnp.stack(_mantissa_slices(xs, n_slices))
-    h1 = jnp.clip(e, -127, 127)
-    h2 = e - h1
-    pows = jnp.stack([
-        jnp.ldexp(jnp.float32(1.0), h1),
-        jnp.ldexp(jnp.float32(1.0), h2),
-    ])
-    return sl, pows

@@ -1,20 +1,22 @@
 """Multi-device / multi-host execution over a ``jax.sharding.Mesh``.
 
 The reference is strictly single-process (SURVEY.md §2: no collectives of any
-kind exist); this module is the new TPU-native scaling layer it calls for:
+kind exist); this module is the scaling layer it calls for:
 
 - **Rows** (the dataset axis N) are sharded across the mesh — the analogue of
   data/sequence parallelism for this workload (SURVEY.md §5). ``fit`` then
-  consists of per-shard partial products assembled with ``psum`` over ICI:
-  GSPMD inserts the collective automatically from the sharding annotations.
+  consists of per-shard partial products assembled with ``psum`` over the
+  device interconnect: GSPMD inserts the collective automatically from the
+  sharding annotations.
 - **Folds** are an embarrassingly parallel batch axis: validation blocks are
-  first assembled from the row shards with a shard-local mask-and-psum gather
-  (communication = the gathered rows only, never the dataset), then the fold
-  math runs fold-sharded across all devices.
+  first assembled from the row shards with a shard-local
+  mask-and-reduce-scatter gather (communication = the gathered rows only,
+  never the dataset), then the fold math runs fold-sharded across all
+  devices.
 
 Everything here reuses the exact numerics of :mod:`cvmatrix_tpu.core` — the
-fold math is the same :func:`training_matrices_from_blocks`; only data
-movement differs.
+fold math is the same ``training_matrices_from_blocks``; only data movement
+differs.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ from jax.sharding import Mesh, NamedSharding
 from jax.sharding import PartitionSpec as P
 
 from ..config import CVConfig
+from ..core.batch import batched_matrices_from_blocks
 from ..core.fit import fit as _fit
-from ..core.fold import FoldBlocks, training_matrices_from_blocks
+from ..core.fold import FoldBlocks
 from ..core.state import FitState
-from ..policy import register_cache as _register_routing_cache
 from ..utils.fnkey import fn_cache_key as _fn_cache_key
 
 __all__ = [
@@ -187,49 +189,22 @@ def _gather_sources(config: CVConfig, state: FitState, return_XTY: bool):
     return sources
 
 
-def _psum_scatter_split64(x):
-    """Fold-axis reduce-scatter of 64-bit data as three exact f32 planes.
-
-    The TPU X64-rewrite pass implements elementwise f64 arithmetic but NOT
-    64-bit reduce-scatter (nor 64<->32 bitcast-convert) — probed on v5e,
-    2026-08-18. Every element of ``x`` is nonzero on exactly ONE shard (row
-    ownership partitions the dataset, and non-owners contribute exact
-    zeros), so the collective sum is a SELECTION and scattering the exact
-    Dekker-style split ``x == s1 + s2 + s3`` (f32 planes; each residual
-    subtraction is exact, and 3 x 24 mantissa bits cover f64's 53)
-    plane-wise reproduces ``x`` bit-for-bit on the owner's value. Exactness
-    holds while the planes stay inside f32's exponent range — the same
-    range contract the df64 fold kernels downstream already carry.
-    """
-    f64 = x.dtype
-    s1 = x.astype(jnp.float32)
-    r1 = x - s1.astype(f64)
-    s2 = r1.astype(jnp.float32)
-    s3 = (r1 - s2.astype(f64)).astype(jnp.float32)
-    planes = jnp.stack([s1, s2, s3], axis=-1)
-    y = jax.lax.psum_scatter(planes, ROWS, scatter_dimension=0, tiled=True)
-    return (y[..., 0].astype(f64) + y[..., 1].astype(f64)) + y[..., 2].astype(f64)
-
-
-def _local_gather_scatter(arrs, idx, shard_rows, split64=False,
-                          single_dev=False):
+def _local_gather_scatter(arrs, idx, shard_rows, single_dev=False):
     """Fold-sharded mask-and-reduce-scatter row gather (inside ``shard_map``).
 
     ``idx``: (F, L) global row indices; this shard owns rows
     ``[r0, r0 + shard_rows)``. Each shard contributes its owned rows (zeros
     elsewhere) for every fold; the collective is ``psum_scatter`` over the
     fold axis, so each device receives only ITS ``F / n_dev`` fold slice,
-    already summed. On ICI this is a reduce-scatter instead of an
-    all-reduce — 1/n_dev the wire bytes — and the blocks land fold-sharded,
+    already summed. A reduce-scatter instead of an all-reduce moves 1/n_dev
+    the wire bytes, and the blocks land fold-sharded,
     so the fold math pays no replicated->fold-sharded reshard.
     ``idx.shape[0]`` must be a multiple of the mesh size (callers pad the
     fold axis).
 
     ``single_dev=True`` (1-device mesh, known statically at trace time):
     every row is local and the collective is the identity, so the gather
-    degenerates to plain takes — no masking pass, no concat, no f64
-    plane-split, no scatter. The generic path's extra HBM passes were a
-    measurable slice of the mesh(1) overhead (VERDICT r3 weak #2).
+    degenerates to plain takes — no masking pass, no concat, no scatter.
     """
     if single_dev:
         return {k: a[idx] for k, a in arrs.items()}
@@ -240,8 +215,8 @@ def _local_gather_scatter(arrs, idx, shard_rows, split64=False,
 
     # ONE fused collective: concatenate every stream's contribution on the
     # feature axis and reduce-scatter once, instead of one collective per
-    # stream (launch overhead and ICI message count scale with the number
-    # of collectives, not just bytes).
+    # stream (launch overhead and message count scale with the number of
+    # collectives, not just bytes).
     parts = []
     widths = []
     for a in arrs.values():
@@ -249,12 +224,9 @@ def _local_gather_scatter(arrs, idx, shard_rows, split64=False,
         parts.append(jnp.where(inb[..., None], rows, 0))
         widths.append(rows.shape[-1])
     stacked = jnp.concatenate(parts, axis=-1) if len(parts) > 1 else parts[0]
-    if split64 and stacked.dtype.itemsize == 8:
-        fused = _psum_scatter_split64(stacked)
-    else:
-        fused = jax.lax.psum_scatter(
-            stacked, ROWS, scatter_dimension=0, tiled=True,
-        )
+    fused = jax.lax.psum_scatter(
+        stacked, ROWS, scatter_dimension=0, tiled=True,
+    )
     out = {}
     off = 0
     for k, c in zip(arrs, widths):
@@ -306,31 +278,14 @@ def _gather_program(mesh: Mesh, names: tuple, shard_rows: int):
     """Cached jitted reduce-scatter gather (fresh per-call wrappers
     recompile the whole program every invocation — module-level caching is
     mandatory for warm sweeps). Output is fold-sharded over the mesh."""
-    # TPU lowering cannot reduce-scatter 64-bit element types (see
-    # _psum_scatter_split64); CPU meshes keep the native f64 collective.
-    split64 = next(iter(mesh.devices.flat)).platform == "tpu"
     single = mesh.shape[ROWS] == 1
     return jax.jit(jax.shard_map(
         lambda arrs, idx: _local_gather_scatter(arrs, idx, shard_rows,
-                                                split64=split64,
                                                 single_dev=single),
         mesh=mesh,
         in_specs=({k: P(ROWS, None) for k in names}, P()),
         out_specs={k: P(ROWS) for k in names},
     ))
-
-
-def _resolve_mesh_impl(config: CVConfig, impl: str) -> str:
-    if impl == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        return (
-            "pallas"
-            if (on_tpu and np.dtype(config.dtype).itemsize in (4, 8))
-            else "xla"
-        )
-    if impl not in ("pallas", "xla"):
-        raise ValueError(f"Unknown impl: {impl!r} (auto|pallas|xla).")
-    return impl
 
 
 def _globals_only(config: CVConfig, state: FitState) -> FitState:
@@ -339,8 +294,8 @@ def _globals_only(config: CVConfig, state: FitState) -> FitState:
     return FitState(
         X=jnp.zeros((1, state.K), config.dtype),
         WX=jnp.zeros((1, state.K), config.dtype),
-        # (1, M) dummy keeps state.M (and the M-dependent kernel geometry)
-        # derivable; the fold math only reads blocks, never Y's data.
+        # (1, M) dummy keeps state.M derivable; the fold math only reads
+        # blocks, never Y's data.
         Y=(
             None if state.Y is None
             else jnp.zeros((1, state.M), config.dtype)
@@ -368,21 +323,12 @@ def sharded_training_matrices(
     return_XTX: bool = True,
     return_XTY: bool = True,
     trim_padding: bool = True,
-    impl: str = "auto",
-    interpret: bool = False,
 ):
     """All folds' training matrices on a mesh: gather, then fold-sharded math.
 
     ``idx_batch`` (F, L): per-fold validation indices (padded; pass
     ``mask_batch`` for unequal fold sizes). Outputs are sharded over folds
     (leading axis) across the mesh.
-
-    ``impl="auto"`` routes the fold math through the SAME fused Pallas
-    kernels as the single-chip :func:`core.batch.training_matrices_batched`
-    (packed df64 / MXU Ozaki downdate) on TPU f64/f32 — per-chip fold
-    throughput matches the single-chip kernel path. ``"xla"`` forces the
-    vmapped XLA engine; ``interpret=True`` runs the kernels in Pallas
-    interpret mode (CPU wiring tests).
 
     The fold axis is padded internally to a multiple of the mesh size.
     ``trim_padding=True`` (default) slices the duplicates off — convenient,
@@ -430,10 +376,9 @@ def sharded_training_matrices(
     )
 
     globals_only = _globals_only(config, state)
-    impl_r = _resolve_mesh_impl(config, impl)
 
     out = _fold_math_program(
-        config, mesh, impl_r, return_XTX, return_XTY, interpret, fold_sharded
+        config, return_XTX, return_XTY, fold_sharded
     )(globals_only, blocks)
     if not trim_padding:
         return out, n_folds
@@ -443,40 +388,13 @@ def sharded_training_matrices(
 
 
 @lru_cache(maxsize=64)
-def _fold_math_program(config, mesh, impl_r, return_XTX, return_XTY,
-                       interpret, fold_sharded):
+def _fold_math_program(config, return_XTX, return_XTY, fold_sharded):
     """Cached jitted fold-math phase of :func:`sharded_training_matrices`."""
-    if impl_r == "pallas":
-        # Pallas calls have no GSPMD partitioning rule — run the fold phase
-        # shard-locally under shard_map (no collectives inside; the gather
-        # reduce-scattered the blocks, so each device holds only its own
-        # F/n_dev fold slice and computes exactly that slice).
-        from ..core.batch import batched_matrices_from_blocks
-
-        def fold_math(st, blks):
-            return batched_matrices_from_blocks(
-                config, st, blks,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-                impl="pallas", interpret=interpret,
-            )
-
-        return jax.jit(
-            jax.shard_map(
-                fold_math, mesh=mesh,
-                in_specs=(P(), P(ROWS)), out_specs=P(ROWS),
-                # Pallas calls carry no varying-mesh-axes info; the body is
-                # collective-free so the vma check adds nothing here.
-                check_vma=False,
-            )
-        )
-
-    def fold_fn(st, blks):
-        return training_matrices_from_blocks(
-            config, st, blks, return_XTX=return_XTX, return_XTY=return_XTY
-        )
-
-    return jax.jit(jax.vmap(fold_fn, in_axes=(None, 0)),
-                   out_shardings=fold_sharded)
+    return jax.jit(
+        partial(batched_matrices_from_blocks, config,
+                return_XTX=return_XTX, return_XTY=return_XTY),
+        out_shardings=fold_sharded,
+    )
 
 
 def sharded_cross_validate_reduce(
@@ -490,30 +408,21 @@ def sharded_cross_validate_reduce(
     batch_size: Optional[int] = None,
     return_XTX: bool = True,
     return_XTY: bool = True,
-    impl: str = "auto",
-    interpret: bool = False,
     hbm_budget_bytes: float = 4e9,
 ):
     """Mesh-parallel, single-program CV sweep with an on-device reduction.
 
-    The multi-chip counterpart of :func:`models.sweep.cross_validate_reduce`:
+    The multi-device counterpart of :func:`models.sweep.cross_validate_reduce`:
     ONE compiled program scans fold chunks; each step gathers the chunk's
-    validation rows from the row shards (mask-and-psum), splits the chunk's
-    folds across the mesh, runs the fold math shard-locally (through the
-    fused Pallas kernels on TPU — same routing as the single-chip sweep)
-    and immediately reduces with ``reduce_fn``. Fold matrices never leave
+    validation rows from the row shards (mask-and-reduce-scatter), splits the chunk's
+    folds across the mesh, runs the fold math shard-locally and immediately
+    reduces with ``reduce_fn``. Fold matrices never leave
     their device; only the reductions are returned (stacked, fold-major).
 
     ``batch_size`` (global folds per scan step) defaults to the same
     per-device HBM budget the single-chip sweep uses — per-chunk fixed
-    costs (gather collective, operand prep, kernel grid ramp) amortize
-    over the largest chunk that fits, instead of a flat 256.
-
-    LOOCV in natural order (``idx_batch[i] == [i]``) dispatches to a
-    zero-collective fast path: under row sharding every device already owns
-    exactly the validation rows of its fold slice, so the gather is the
-    identity and the per-dataset kernel operands are prepared ONCE per
-    device (the single-chip sweep's hoisted-prep structure, shard-local).
+    costs (gather collective, dispatch) amortize over the largest chunk
+    that fits.
     """
     if return_XTY and state.Y is None:
         raise ValueError("Response variables `Y` are not provided.")
@@ -521,99 +430,16 @@ def sharded_cross_validate_reduce(
     idx = jnp.asarray(idx_batch)
     n_folds = idx.shape[0]
     if batch_size is None:
-        # Per-DEVICE budget, like materialize_sweep: pair output buffers
-        # (~16 B/element) + the gathered block streams and their split
-        # planes for this chunk's folds.
+        # Per-DEVICE budget, like materialize_sweep: two chunks of fold
+        # outputs plus the gathered block streams for this chunk's folds.
         k = state.K
         c = (k if return_XTX else 0) + ((state.M or 0) if return_XTY else 0)
-        per_fold = 2 * 8 * max(k * c, 1)
-        per_fold += 4 * 8 * idx.shape[1] * (state.K + (state.M or 0) + 1)
+        itemsize = np.dtype(config.dtype).itemsize
+        per_fold = 2 * itemsize * max(k * c, 1)
+        per_fold += 4 * itemsize * idx.shape[1] * (k + (state.M or 0) + 1)
         batch_size = n_dev * max(
             1, min(2000, int(hbm_budget_bytes / per_fold))
         )
-    impl_r = _resolve_mesh_impl(config, impl)
-    if (
-        impl_r == "pallas"
-        and mask_batch is None
-        and idx.ndim == 2 and idx.shape[1] == 1
-        and return_XTX
-        and state.X.shape[0] % n_dev == 0
-        and np.dtype(config.dtype).itemsize in (4, 8)
-    ):
-        from ..core.batch import loocv_single_tile_ok
-
-        if loocv_single_tile_ok(config, state, return_XTX, return_XTY):
-            ih = np.asarray(jax.device_get(idx[:, 0]))
-            # Prefix-arange folds shorter than half the dataset would make
-            # the shard-local sweep (which always walks ALL local rows)
-            # compute more folds than requested — stay on the generic path.
-            if 2 * ih.shape[0] >= state.X.shape[0] and ih.shape[
-                0
-            ] <= state.X.shape[0] and np.array_equal(
-                ih, np.arange(ih.shape[0], dtype=ih.dtype)
-            ):
-                return _sharded_loocv_identity_reduce(
-                    config, state, mesh, reduce_fn,
-                    batch_size // n_dev, n_folds,
-                    return_XTY=return_XTY, interpret=interpret,
-                )
-    # Small-fold hoisted path: ONE fold-sharded gather collective for the
-    # WHOLE fold list (row ownership partitions the data, so total wire
-    # bytes equal the generic path's per-chunk gathers combined), then each
-    # device runs the single-chip sweep's hoisted-prep structure on its
-    # fold slice — prepare_fold_operands once, packed kernel + reduce per
-    # chunk. Kills the per-chunk gather/prep overhead that made mesh fold
-    # math 1.21x the hoisted single-chip sweep at mid-band P (round-4 diag).
-    if (
-        impl_r == "pallas"
-        and np.dtype(config.dtype).itemsize in (4, 8)
-        and state.X.shape[0] % n_dev == 0
-    ):
-        from ..core.batch import (
-            _HOIST_BUDGET_BYTES,
-            _hoist_reduce_enabled,
-            _hoisted_operand_bytes,
-            LARGE_FOLD_ROWS,
-            large_fold_threshold,
-        )
-
-        n_l = idx.shape[1]
-        threshold = (
-            large_fold_threshold(config, state, return_XTX, return_XTY)
-            if np.dtype(config.dtype).itemsize == 8 else LARGE_FOLD_ROWS
-        )
-        mask_arr = (
-            None if mask_batch is None
-            else jnp.asarray(mask_batch, config.dtype)
-        )
-        if _hoist_reduce_enabled() and n_l < threshold and _hoisted_operand_bytes(
-            state, -(-n_folds // n_dev), n_l, return_XTX, return_XTY
-        ) <= _HOIST_BUDGET_BYTES:
-            return _sharded_hoisted_reduce(
-                config, state, mesh, idx, mask_arr,
-                reduce_fn, batch_size // n_dev, n_folds,
-                _smallfold_program,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-                interpret=interpret,
-            )
-        from ..core.batch import _v3_blocks_hoist_bytes, ozaki_v3_ok
-
-        if (
-            _hoist_reduce_enabled()
-            and n_l >= threshold
-            and np.dtype(config.dtype).itemsize == 8
-            and return_XTX
-            and ozaki_v3_ok(config, state, return_XTX, return_XTY, n_l)
-            and _v3_blocks_hoist_bytes(
-                state, -(-n_folds // n_dev), n_l) <= _HOIST_BUDGET_BYTES
-        ):
-            return _sharded_hoisted_reduce(
-                config, state, mesh, idx, mask_arr,
-                reduce_fn, batch_size // n_dev, n_folds,
-                _sharded_v3_program,
-                return_XTX=return_XTX, return_XTY=return_XTY,
-                interpret=interpret,
-            )
     mask = None if mask_batch is None else jnp.asarray(mask_batch, config.dtype)
     # Chunk size: a multiple of the mesh size, equalized over chunks.
     bs = max(n_dev, min(batch_size, n_folds) // n_dev * n_dev)
@@ -639,15 +465,14 @@ def sharded_cross_validate_reduce(
 
     red = _reduce_program(
         config, mesh, tuple(sources.keys()), state.weights is not None,
-        impl_r, return_XTX, return_XTY, interpret, shard_rows, bs_local,
-        reduce_fn,
+        return_XTX, return_XTY, shard_rows, bs_local, reduce_fn,
     )(sources, globals_only, idx_c, mask_c)
     red = jax.tree.map(lambda a: a.reshape(-1, *a.shape[2:])[:n_folds], red)
     return red
 
 
-def _reduce_program(config, mesh, names, weighted, impl_r, return_XTX,
-                    return_XTY, interpret, shard_rows, bs_local, reduce_fn):
+def _reduce_program(config, mesh, names, weighted, return_XTX,
+                    return_XTY, shard_rows, bs_local, reduce_fn):
     """Cached jitted program for :func:`sharded_cross_validate_reduce`.
 
     Keyed on everything the trace depends on; ``reduce_fn`` is keyed by
@@ -656,8 +481,8 @@ def _reduce_program(config, mesh, names, weighted, impl_r, return_XTX,
     so a fresh-but-identical lambda per call still hits the cache.
     """
     return _reduce_program_cached(
-        config, mesh, names, weighted, impl_r, return_XTX, return_XTY,
-        interpret, shard_rows, bs_local, _fn_cache_key(reduce_fn),
+        config, mesh, names, weighted, return_XTX, return_XTY,
+        shard_rows, bs_local, _fn_cache_key(reduce_fn),
         _Uncached(reduce_fn),
     )
 
@@ -681,14 +506,10 @@ class _Uncached:
 
 
 @lru_cache(maxsize=64)
-def _reduce_program_cached(config, mesh, names, weighted, impl_r, return_XTX,
-                           return_XTY, interpret, shard_rows, bs_local,
+def _reduce_program_cached(config, mesh, names, weighted, return_XTX,
+                           return_XTY, shard_rows, bs_local,
                            reduce_key, reduce_carrier):
     reduce_fn = reduce_carrier.value
-    from ..core.batch import batched_matrices_from_blocks
-
-    # Same TPU 64-bit reduce-scatter constraint as _gather_program.
-    split64 = next(iter(mesh.devices.flat)).platform == "tpu"
     single = mesh.shape[ROWS] == 1
 
     def body(srcs, st, ic, mc):
@@ -698,26 +519,16 @@ def _reduce_program_cached(config, mesh, names, weighted, impl_r, return_XTX,
             # bs_local fold slice (1/n_dev the collective bytes of the
             # replicate-then-slice it replaces).
             gathered = _local_gather_scatter(srcs, ci, shard_rows,
-                                             split64=split64,
                                              single_dev=single)
             r0 = jax.lax.axis_index(ROWS) * bs_local
             my_mask = None if cm is None else jax.lax.dynamic_slice_in_dim(
                 cm, r0, bs_local, 0)
             my = _blocks_from_gathered(config, weighted, gathered, my_mask,
                                        return_XTY)
-            if impl_r == "pallas":
-                mats, stats = batched_matrices_from_blocks(
-                    config, st, my,
-                    return_XTX=return_XTX, return_XTY=return_XTY,
-                    impl="pallas", interpret=interpret,
-                )
-            else:
-                mats, stats = jax.vmap(
-                    lambda blks: training_matrices_from_blocks(
-                        config, st, blks,
-                        return_XTX=return_XTX, return_XTY=return_XTY,
-                    )
-                )(my)
+            mats, stats = batched_matrices_from_blocks(
+                config, st, my,
+                return_XTX=return_XTX, return_XTY=return_XTY,
+            )
             return carry, jax.vmap(reduce_fn)(mats, stats)
 
         _, red = jax.lax.scan(step, None, (ic, mc))
@@ -728,381 +539,5 @@ def _reduce_program_cached(config, mesh, names, weighted, impl_r, return_XTX,
             body, mesh=mesh,
             in_specs=({k: P(ROWS, None) for k in names}, P(), P(), P()),
             out_specs=P(None, ROWS),
-            # Pallas calls carry no varying-mesh-axes info (see above).
-            check_vma=False,
         )
     )
-
-
-def _sharded_loocv_identity_reduce(
-    config, state, mesh, reduce_fn, bs_local_target, n_folds,
-    *, return_XTY, interpret,
-):
-    """Zero-collective LOOCV reduce sweep (folds == rows, natural order).
-
-    Row sharding partitions the dataset so device ``d`` owns rows
-    ``[d*R, (d+1)*R)``; with ``idx[i] == [i]`` those rows ARE the
-    validation blocks of folds ``[d*R, (d+1)*R)``. Assigning exactly those
-    folds to device ``d`` makes every gather shard-local — the generic
-    path's per-chunk reduce-scatter moves each row to the device that
-    already owns it. Each device then runs the single-chip sweep's
-    hoisted-prep structure (:func:`models.sweep.materialize_sweep`'s LOOCV
-    body): per-dataset kernel operands prepared ONCE from the local rows,
-    a scan of slice + fused-LOOCV-kernel + stats + ``reduce_fn`` steps,
-    plus one tail step when the shard size is not a chunk multiple.
-    Outputs come back in the locality fold order and are re-indexed to the
-    caller's natural order here.
-    """
-    n_dev = mesh.shape[ROWS]
-    n_total = state.X.shape[0]
-    R = n_total // n_dev
-    bs_local = max(1, min(bs_local_target, R))
-    n_full = R // bs_local
-    rem = R - n_full * bs_local
-    sources = _gather_sources(config, state, return_XTY)
-    globals_only = _globals_only(config, state)
-    out = _loocv_identity_program(
-        config, mesh, tuple(sources.keys()), state.weights is not None,
-        np.dtype(config.dtype).itemsize == 8, state.K,
-        (state.M or 0) if return_XTY else 0, R, bs_local, n_full, rem,
-        return_XTY, interpret, n_total,
-        _fn_cache_key(reduce_fn), _Uncached(reduce_fn),
-    )(sources, globals_only)
-    red, tail = out if rem else (out, None)
-
-    def assemble(a, t):
-        rest = a.shape[2:]
-        flat = a.reshape(n_full, n_dev, bs_local, *rest).swapaxes(0, 1)
-        flat = flat.reshape(n_dev, n_full * bs_local, *rest)
-        if t is not None:
-            flat = jnp.concatenate(
-                [flat, t.reshape(n_dev, rem, *rest)], axis=1
-            )
-        return flat.reshape(n_dev * R, *rest)[:n_folds]
-
-    if tail is None:
-        return jax.tree.map(lambda a: assemble(a, None), red)
-    return jax.tree.map(assemble, red, tail)
-
-
-@lru_cache(maxsize=64)
-def _loocv_identity_program(config, mesh, names, weighted, is_f64, k, m,
-                            R, bs_local, n_full, rem, return_XTY, interpret,
-                            n_total, reduce_key, reduce_carrier):
-    reduce_fn = reduce_carrier.value
-    from ..core.batch import (
-        _df64x2_enabled,
-        _f32x2_enabled,
-        _sym_enabled,
-        loocv_f32_from_sources,
-        loocv_from_sources,
-        loocv_sym_from_sources,
-        loocv_sym_tile,
-        prepare_loocv_sources,
-        stats_from_blocks,
-    )
-    from ..ops.df64 import df_to_f64
-
-    c_full = k + m
-
-    def body(srcs, st):
-        if weighted:
-            Xl, wl = srcs["X"], srcs["w"]
-            Yl = srcs.get("Y")
-            WXl = Xl * wl
-            WYl = (
-                Yl * wl if (Yl is not None and config.needs_WY) else None
-            )
-        else:
-            WXl = srcs["WX"]
-            Xl, wl, WYl = WXl, None, None
-            Yl = srcs.get("Y")
-        state_local = FitState(
-            X=Xl, WX=WXl, Y=Yl, WY=WYl, weights=wl,
-            XTX=st.XTX, XTY=st.XTY, sum_X=st.sum_X, sum_Y=st.sum_Y,
-            sum_sq_X=st.sum_sq_X, sum_sq_Y=st.sum_sq_Y,
-            sum_w=st.sum_w, num_nonzero_w=st.num_nonzero_w,
-        )
-        src = prepare_loocv_sources(
-            config, state_local,
-            jnp.arange(R, dtype=jnp.int32)[:, None],
-            return_XTX=True, return_XTY=return_XTY,
-            presplit=None if is_f64 else False,
-            n_rows_total=n_total,
-        )
-        bt_sym = (
-            loocv_sym_tile(src.kp) if (is_f64 and _sym_enabled()) else None
-        )
-
-        def chunk_reduce(r0, size):
-            rows_c = r0 + jnp.arange(size, dtype=jnp.int32)
-            sc = jax.lax.dynamic_slice_in_dim(src.scal, r0, size, 0)
-            if is_f64:
-                if bt_sym is not None:
-                    pair = loocv_sym_from_sources(
-                        config, src, rows_c, sc, return_XTY=return_XTY,
-                        bt=bt_sym, interpret=interpret,
-                    )
-                else:
-                    pair = loocv_from_sources(
-                        config, src, rows_c, sc, return_XTY=return_XTY,
-                        two_per_step=_df64x2_enabled() and size % 2 == 0,
-                        interpret=interpret,
-                    )
-                out = df_to_f64(pair[:, 0, :k, :c_full],
-                                pair[:, 1, :k, :c_full])
-            else:
-                out32 = loocv_f32_from_sources(
-                    config, src, rows_c, sc, return_XTY=return_XTY,
-                    two_per_step=_f32x2_enabled() and size % 2 == 0,
-                    interpret=interpret,
-                )
-                out = out32[:, :k, :c_full]
-            mats = (out[:, :, :k], out[:, :, k:]) if return_XTY else out
-
-            def sl(a):
-                return jax.lax.dynamic_slice_in_dim(a, r0, size, 0)[:, None]
-
-            gathered = (
-                {"X": sl(Xl), "w": sl(wl)} if weighted else {"WX": sl(WXl)}
-            )
-            if Yl is not None and return_XTY:
-                gathered["Y"] = sl(Yl)
-            blocks = _blocks_from_gathered(config, weighted, gathered,
-                                           None, return_XTY)
-            stats5 = stats_from_blocks(config, st, blocks, True, return_XTY)
-            return jax.vmap(reduce_fn)(mats, stats5[:4])
-
-        def step(carry, r0):
-            return carry, chunk_reduce(r0, bs_local)
-
-        _, red = jax.lax.scan(
-            step, None, jnp.arange(n_full, dtype=jnp.int32) * bs_local
-        )
-        if rem:
-            tail = chunk_reduce(jnp.int32(n_full * bs_local), rem)
-            return red, tail
-        return red
-
-    out_specs = (
-        (P(None, ROWS), P(ROWS)) if rem else P(None, ROWS)
-    )
-    return jax.jit(
-        jax.shard_map(
-            body, mesh=mesh,
-            in_specs=({k_: P(ROWS, None) for k_ in names}, P()),
-            out_specs=out_specs,
-            check_vma=False,
-        )
-    )
-
-
-def _sharded_hoisted_reduce(
-    config, state, mesh, idx, mask, reduce_fn, bs_local_target, n_folds,
-    program, *, return_XTX, return_XTY, interpret,
-):
-    """Hoisted-prep mesh reduce sweep (small-fold packed or mid-band v3).
-
-    Folds are block-distributed: device ``d`` owns folds
-    ``[d*F_loc, (d+1)*F_loc)``. ONE mask-and-reduce-scatter collective
-    delivers every fold's validation rows to its owner, then each device
-    mirrors the single-chip hoisted reduce loops: operands and stats
-    prepared once from the gathered blocks, a scan of
-    slice + fused-kernel + reduce steps. ``program`` selects the kernel
-    route (:func:`_smallfold_program` below the MXU threshold,
-    :func:`_sharded_v3_program` for v3-eligible mid-band folds). Outputs
-    return device-major and are re-indexed to the caller's fold order.
-    """
-    n_dev = mesh.shape[ROWS]
-    f_loc = -(-n_folds // n_dev)
-    bs_local = max(1, min(bs_local_target, f_loc))
-    n_chunks = -(-f_loc // bs_local)
-    bs_local = -(-f_loc // n_chunks)
-    f_loc = n_chunks * bs_local
-    pad = n_dev * f_loc - n_folds
-    if pad:
-        idx = jnp.concatenate(
-            [idx, jnp.broadcast_to(idx[-1:], (pad,) + idx.shape[1:])]
-        )
-        if mask is not None:
-            mask = jnp.concatenate(
-                [mask, jnp.broadcast_to(mask[-1:], (pad,) + mask.shape[1:])]
-            )
-    shard_rows = state.X.shape[0] // n_dev
-    sources = _gather_sources(config, state, return_XTY)
-    globals_only = _globals_only(config, state)
-    red = program(
-        config, mesh, tuple(sources.keys()), state.weights is not None,
-        np.dtype(config.dtype).itemsize == 8, return_XTX, return_XTY,
-        interpret, shard_rows, f_loc, bs_local, n_chunks,
-        _fn_cache_key(reduce_fn), _Uncached(reduce_fn),
-    )(sources, globals_only, idx, mask)
-
-    def assemble(a):
-        rest = a.shape[2:]
-        flat = a.reshape(n_chunks, n_dev, bs_local, *rest).swapaxes(0, 1)
-        return flat.reshape(n_dev * f_loc, *rest)[:n_folds]
-
-    return jax.tree.map(assemble, red)
-
-
-@lru_cache(maxsize=64)
-def _smallfold_program(config, mesh, names, weighted, is_f64, return_XTX,
-                       return_XTY, interpret, shard_rows, f_loc, bs_local,
-                       n_chunks, reduce_key, reduce_carrier):
-    reduce_fn = reduce_carrier.value
-    from ..core.batch import (
-        downdate_from_operands,
-        prepare_fold_operands,
-        slice_operands,
-        stats_from_blocks,
-    )
-    from ..ops import kernels as _k
-    from ..ops.df64 import df_to_f64
-
-    split64 = next(iter(mesh.devices.flat)).platform == "tpu"
-    single = mesh.shape[ROWS] == 1
-
-    def body(srcs, st, ia, ma):
-        gathered = _local_gather_scatter(srcs, ia, shard_rows,
-                                         split64=split64, single_dev=single)
-        d = jax.lax.axis_index(ROWS)
-        my_mask = (
-            None if ma is None
-            else jax.lax.dynamic_slice_in_dim(ma, d * f_loc, f_loc, 0)
-        )
-        blocks = _blocks_from_gathered(config, weighted, gathered, my_mask,
-                                       return_XTY)
-        stats5 = stats_from_blocks(config, st, blocks, return_XTX,
-                                   return_XTY)
-        ops, stats = prepare_fold_operands(
-            config, st, None, None,
-            return_XTX=return_XTX, return_XTY=return_XTY,
-            blocks_stats=(blocks, stats5),
-        )
-        k, c = ops.k, ops.c
-
-        def step(carry, ci):
-            o = slice_operands(ops, ci * bs_local, bs_local)
-            if is_f64:
-                pair = downdate_from_operands(o, interpret=interpret)
-                out = df_to_f64(pair[:, 0, :k, :c], pair[:, 1, :k, :c])
-            else:
-                out32 = _k.fused_downdate_f32_packed(
-                    o.total4, o.u, o.v, o.kvec, o.cvec,
-                    center=o.center, scale=o.scale, interpret=interpret,
-                )
-                out = out32[:, :k, :c]
-            mats = (
-                (out[:, :, :k], out[:, :, k:])
-                if (return_XTX and return_XTY) else out
-            )
-            st_c = jax.tree.map(
-                lambda a: jax.lax.dynamic_slice_in_dim(
-                    a, ci * bs_local, bs_local, 0),
-                stats,
-            )
-            return carry, jax.vmap(reduce_fn)(mats, st_c)
-
-        _, red = jax.lax.scan(
-            step, None, jnp.arange(n_chunks, dtype=jnp.int32)
-        )
-        return red  # (n_chunks, bs_local, ...)
-
-    return jax.jit(
-        jax.shard_map(
-            body, mesh=mesh,
-            in_specs=({k_: P(ROWS, None) for k_ in names}, P(), P(), P()),
-            out_specs=P(None, ROWS),
-            check_vma=False,
-        )
-    )
-
-
-@lru_cache(maxsize=64)
-def _sharded_v3_program(config, mesh, names, weighted, is_f64, return_XTX,
-                        return_XTY, interpret, shard_rows, f_loc, bs_local,
-                        n_chunks, reduce_key, reduce_carrier):
-    """Mid-band (v3 fused Ozaki) twin of :func:`_smallfold_program`: the
-    gathered blocks are sliced to int8 prefix-stack operands ONCE per
-    device (:func:`core.batch.ozaki_operands_from_blocks`), and the chunk
-    scan is a contiguous slice + the v3 kernel + reduce."""
-    reduce_fn = reduce_carrier.value
-    from ..core.batch import (
-        ozaki_operands_from_blocks,
-        ozaki_v3_run,
-        stats_from_blocks,
-    )
-    from ..ops.df64 import df_to_f64
-
-    split64 = next(iter(mesh.devices.flat)).platform == "tpu"
-    single = mesh.shape[ROWS] == 1
-
-    def body(srcs, st, ia, ma):
-        gathered = _local_gather_scatter(srcs, ia, shard_rows,
-                                         split64=split64, single_dev=single)
-        d = jax.lax.axis_index(ROWS)
-        my_mask = (
-            None if ma is None
-            else jax.lax.dynamic_slice_in_dim(ma, d * f_loc, f_loc, 0)
-        )
-        blocks = _blocks_from_gathered(config, weighted, gathered, my_mask,
-                                       return_XTY)
-        stats5 = stats_from_blocks(config, st, blocks, return_XTX,
-                                   return_XTY)
-        ops = ozaki_operands_from_blocks(config, st, blocks, stats5,
-                                         return_XTY=return_XTY)
-        stats = stats5[:4]
-        k = st.K
-        m = (st.M or 0) if return_XTY else 0
-        c = k + m
-        lp = ops.lp
-
-        def step(carry, ci):
-            r0 = ci * (bs_local * lp)
-            sa = jax.lax.dynamic_slice_in_dim(ops.sa, r0, bs_local * lp, 1)
-            sb = jax.lax.dynamic_slice_in_dim(ops.sb_rev, r0,
-                                              bs_local * lp, 1)
-            sx = jax.lax.dynamic_slice_in_dim(ops.sxv, ci * bs_local,
-                                              bs_local, 0)
-            yv = jax.lax.dynamic_slice_in_dim(ops.yvec, ci * bs_local,
-                                              bs_local, 0)
-            sc = jax.lax.dynamic_slice_in_dim(ops.scal, ci * bs_local,
-                                              bs_local, 0)
-            pair = ozaki_v3_run(config, ops, sa, sb, sx, yv, sc,
-                                return_XTY=return_XTY, interpret=interpret)
-            out = df_to_f64(pair[:, 0, :k, :c], pair[:, 1, :k, :c])
-            mats = (
-                (out[:, :, :k], out[:, :, k:]) if return_XTY else out
-            )
-            st_c = jax.tree.map(
-                lambda a: jax.lax.dynamic_slice_in_dim(
-                    a, ci * bs_local, bs_local, 0),
-                stats,
-            )
-            return carry, jax.vmap(reduce_fn)(mats, st_c)
-
-        _, red = jax.lax.scan(
-            step, None, jnp.arange(n_chunks, dtype=jnp.int32)
-        )
-        return red
-
-    return jax.jit(
-        jax.shard_map(
-            body, mesh=mesh,
-            in_specs=({k_: P(ROWS, None) for k_ in names}, P(), P(), P()),
-            out_specs=P(None, ROWS),
-            check_vma=False,
-        )
-    )
-
-
-# Routing-policy hooks: set_routing re-traces the mesh programs (the
-# kernel route is baked in at trace time).
-_register_routing_cache(_sharded_fit_program)
-_register_routing_cache(_gather_program)
-_register_routing_cache(_fold_math_program)
-_register_routing_cache(_reduce_program_cached)
-_register_routing_cache(_loocv_identity_program)
-_register_routing_cache(_smallfold_program)
-_register_routing_cache(_sharded_v3_program)

@@ -1,7 +1,7 @@
 """Multi-host entry points (jax.distributed + host-local data feeding).
 
 The reference is single-process; this is the new scaling layer SURVEY.md §2
-calls for ("row sharding across a multi-host slice with psum over ICI/DCN").
+calls for ("row sharding across hosts with psum assembling the globals").
 The compute path is :mod:`cvmatrix_tpu.parallel.distributed` unchanged — a
 ``Mesh`` over all global devices makes its psum collectives span hosts. This
 module adds the process-level plumbing:
@@ -49,8 +49,8 @@ def initialize(
 ) -> None:
     """Initialise the multi-process JAX runtime (no-op if single-process).
 
-    On Cloud TPU the arguments are autodetected from the environment; pass
-    them explicitly elsewhere.
+    Pass the arguments explicitly unless the cluster environment lets
+    ``jax.distributed`` autodetect them.
 
     The already-initialised probe must NOT touch the device backends:
     ``jax.process_count()`` initialises them, after which

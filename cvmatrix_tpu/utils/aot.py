@@ -1,28 +1,25 @@
 """Ahead-of-time program artifacts: compile once, ship to a fleet.
 
 The persistent compilation cache (:mod:`cvmatrix_tpu.utils.cache`) removes
-repeat compiles on ONE machine; this module removes them across machines.
-``export_program`` runs the trace + platform lowering (StableHLO +, for
-Pallas kernels, Mosaic serialization) for a pinned platform set and writes a
-self-contained artifact; ``load_program`` restores a callable on any host
-whose runtime platform is in that set — the multi-minute f64 sweep trace
-never runs on the serving fleet. Build TPU artifacts on a TPU-attached
-host: the engine's backend-dependent routing is baked at trace time (see
-``export_program``, which refuses a mismatched build). No reference
-equivalent (the reference relies on JAX's in-process jit cache only; its
-published cold-JIT cost is 23 s on GPU, ref
-``benchmark_results_jax.csv:45``).
+repeat compiles on ONE machine; this module removes repeat traces across
+machines. ``export_program`` runs the trace + platform lowering (StableHLO)
+for a pinned platform set and writes a self-contained artifact;
+``load_program`` restores a callable on any host whose runtime platform is in
+that set. The lowering is platform-specific but needs no device: a CPU-only
+build host can export a ``cuda`` artifact. No reference equivalent (the
+reference relies on JAX's in-process jit cache only; its published cold-JIT
+cost is 23 s on GPU, ref ``benchmark_results_jax.csv:45``).
 
 The artifact embeds the argument tree structure/shapes/dtypes and the
 serialization is versioned by JAX itself; a shape or dtype mismatch at call
-time raises with the expected spec. Donated/sharded layouts survive export
-(jax.export carries shardings for multi-chip programs).
+time raises with the expected spec. Sharded layouts survive export
+(jax.export carries shardings for multi-device programs).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import jax
 
@@ -58,43 +55,22 @@ def export_program(
     example_args: Sequence,
     path: str,
     *,
-    platforms: Sequence[str] = ("tpu",),
+    platforms: Optional[Sequence[str]] = None,
     static_argnums: Sequence[int] = (),
-    allow_backend_mismatch: bool = False,
 ) -> int:
     """Trace + lower ``fn(*example_args)`` for ``platforms``; write to ``path``.
 
-    ``fn`` is jitted if it is not already a jitted computation. Returns the
-    artifact size in bytes. The on-device machine-code compile still
-    happens once at first call on each runtime, served by the persistent
-    cache thereafter.
-
-    **Build TPU artifacts on a TPU-attached host.** The engine's
-    ``matmul_mode="auto"`` routing is decided at TRACE time from
-    ``jax.default_backend()`` (the exact int8-MXU f64 contraction vs the
-    native dot — on TPU the native f64 dot is only ~f32-accurate). A
-    ``platforms=["tpu"]`` artifact traced on a CPU-only host would bake
-    the native-dot route and SILENTLY lose the 1e-8 contract on the
-    serving fleet, so that combination raises. Pass
-    ``allow_backend_mismatch=True`` only when the traced function does
-    not depend on backend routing (e.g. ``impl="xla"`` /
-    ``matmul_mode="exact"`` forced explicitly).
+    ``platforms`` defaults to the running backend's platform. ``fn`` is
+    jitted if it is not already a jitted computation. Returns the artifact
+    size in bytes. The on-device machine-code compile still happens once at
+    first call on each runtime, served by the persistent cache thereafter.
     """
-    if ("tpu" in platforms and jax.default_backend() != "tpu"
-            and not allow_backend_mismatch):
-        raise ValueError(
-            "Refusing to export a 'tpu'-platform artifact from a "
-            f"'{jax.default_backend()}' host: matmul_mode='auto' routing is "
-            "baked at trace time, so the artifact would run the native f64 "
-            "dot on TPU (~f32 accuracy) instead of the exact contraction. "
-            "Build on a TPU-attached host, or pass "
-            "allow_backend_mismatch=True if the function forces its "
-            "routing explicitly (impl='xla' / matmul_mode='exact')."
-        )
     jitted = fn if hasattr(fn, "lower") else jax.jit(
         fn, static_argnums=tuple(static_argnums)
     )
-    exp = jax.export.export(jitted, platforms=list(platforms))(*example_args)
+    exp = jax.export.export(
+        jitted, platforms=None if platforms is None else list(platforms)
+    )(*example_args)
     payload = exp.serialize()
     tmp = f"{path}.tmp.{os.getpid()}"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

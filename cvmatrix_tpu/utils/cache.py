@@ -2,13 +2,15 @@
 
 The reference library needs no compile-cache story (NumPy is interpret-time;
 its JAX backend's worst published cold JIT is ~23 s on GPU —
-``benchmark_results_jax.csv``). On TPU the exact-f64 fit/fold programs are
-large Mosaic/XLA compiles, so first-run UX depends on JAX's persistent
-compilation cache: with it enabled, every compile after the first run of a
-given shape/config loads from disk in milliseconds.
+``benchmark_results_jax.csv``). Every distinct config, fold size and chunk
+shape here is its own XLA program, so first-run latency depends on JAX's
+persistent compilation cache: with it enabled, every compile after the first
+run of a given shape/config loads from disk.
 
-This is plain configuration (``jax.config`` knobs), packaged so users and
-the benchmarks enable it in one line.
+The directory is ``$JAX_COMPILATION_CACHE_DIR`` when that is set, and
+otherwise one fixed path inside the checkout (``<repo>/.jax_cache``). The
+path is part of what makes a cache hit, so it never depends on a temporary
+name, a process id or the time.
 """
 
 import os
@@ -17,21 +19,29 @@ import jax
 
 __all__ = ["enable_persistent_cache"]
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "cvmatrix_tpu", "xla"
-)
+_ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable_persistent_cache(cache_dir: str = None) -> str:
+def _cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR``, else ``<repo>/.jax_cache``."""
+    env = os.environ.get(_ENV)
+    if env:
+        return env
+    repo = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    )
+    return os.path.join(repo, ".jax_cache")
+
+
+def enable_persistent_cache() -> str:
     """Enable JAX's on-disk compilation cache (idempotent).
 
-    ``cache_dir`` defaults to ``$CVMATRIX_TPU_CACHE`` or
-    ``~/.cache/cvmatrix_tpu/xla``. Returns the directory used. Safe to call
+    Returns the directory used: ``$JAX_COMPILATION_CACHE_DIR`` when set,
+    else ``<repo>/.jax_cache``. Safe to call
     before or after backend initialisation; affects only compiles that
     happen afterwards.
     """
-    if cache_dir is None:
-        cache_dir = os.environ.get("CVMATRIX_TPU_CACHE", _DEFAULT_DIR)
+    cache_dir = _cache_dir()
     os.makedirs(cache_dir, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", cache_dir)
     # Cache every program: the default 1s/small-entry filters would skip

@@ -1,17 +1,35 @@
 """Profiling/observability helpers (SURVEY.md §5: the reference has only
-wall-clock timing; the TPU build adds profiler traces and GB/s counters).
+wall-clock timing; this adds profiler traces and GB/s counters).
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from typing import Iterator, Optional
 
 import jax
-import jax.numpy as jnp
 
-__all__ = ["trace", "device_fence", "Stopwatch"]
+__all__ = ["card_description", "trace", "Stopwatch"]
+
+
+def card_description() -> str:
+    """The GPU's name and power limit, as ``nvidia-smi`` reports them.
+
+    A card may be capped below its rated power and then runs slower under
+    load, so every recorded time carries this line. Returns the error text
+    instead when ``nvidia-smi`` cannot be run.
+    """
+    cmd = ["nvidia-smi", "--query-gpu=name,power.limit",
+           "--format=csv,noheader"]
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi unavailable: {e}"
+    if out.returncode != 0:
+        return f"nvidia-smi failed (rc={out.returncode}): {out.stderr.strip()}"
+    return out.stdout.strip()
 
 
 @contextlib.contextmanager
@@ -22,25 +40,6 @@ def trace(logdir: str) -> Iterator[None]:
         yield
     finally:
         jax.profiler.stop_trace()
-
-
-@jax.jit
-def _probe_acc(a, acc):
-    return a.reshape(-1)[0].astype(jnp.float32) + acc
-
-
-def device_fence(tree) -> float:
-    """Honest completion barrier: fetch a scalar that depends on ``tree``.
-
-    ``block_until_ready`` can return at enqueue on remote-tunneled runtimes;
-    transferring a dependent value to the host cannot. Returns the fetched
-    probe value (sum of one element per leaf).
-    """
-    leaves = [x for x in jax.tree.leaves(tree) if hasattr(x, "ndim")]
-    s = jnp.zeros((), jnp.float32)
-    for x in leaves:
-        s = _probe_acc(x, s)
-    return float(s)
 
 
 class Stopwatch:

@@ -1,8 +1,8 @@
 """Device-resident cross-validation: matrices consumed on device.
 
 The reference workflow hands each fold's (K, K)/(K, M) training matrices
-back to the host (or to a caller-side loop). On TPU the idiomatic shape is
-to CONSUME them where they are produced: one compiled program sweeps every
+back to the host (or to a caller-side loop). On an accelerator the idiomatic
+shape is to CONSUME them where they are produced: one compiled program sweeps every
 fold, and a user reduction (here: a ridge solve for per-fold regression
 coefficients, the downstream step of PLS/ridge-style pipelines) maps each
 fold's matrices to a small result. Only the coefficients come back.
@@ -39,9 +39,8 @@ if __name__ == "__main__":
     def ridge_coefficients(mats, stats):
         """Per-fold reduction, traced under vmap inside ONE program.
 
-        The matrices are accumulated at float64 grade; the small K x K
-        solve runs in f32 (TPU linalg has no f64 LU) — the usual split for
-        downstream PLS/ridge steps.
+        The matrices are accumulated in float64; the small K x K solve
+        runs in f32 — the usual split for downstream PLS/ridge steps.
         """
         xtx, xty = mats
         lhs = (xtx + LAM * jnp.eye(xtx.shape[0], dtype=xtx.dtype))

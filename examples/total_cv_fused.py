@@ -4,17 +4,14 @@
 benchmark (the reference measures fit + all folds' training matrices as
 one quantity, ``/root/reference/benchmarks/benchmark.py:148-152``): it
 compiles the fit and the whole fold sweep into a single XLA program, so
-there is no intermediate host dispatch, and — on the TPU float64 path —
-the int8 dataset slice planes are built once and shared between the fit
-contraction and the fused per-fold downdate kernel.
+there is no intermediate host dispatch between the phases.
 
-The returned value is a probe scalar whose fetch is the completion
+The returned value is a probe scalar; waiting on it is the completion
 barrier for everything; use :func:`materialize_sweep` /
 :func:`cross_validate_reduce` when you need the per-fold results
 themselves.
 
-Runs anywhere (CPU included); on a TPU the sweep routes through the
-fused Pallas kernels automatically.
+Runs on CPU or GPU.
 """
 
 import time

@@ -1,4 +1,4 @@
-"""Batched folds in one compiled program — the TPU fast path.
+"""Batched folds in one compiled program — the fast path.
 
 Counterpart of the reference's ``examples/training_matrices_jax.py``
 (``jax.jit(jax.vmap(...))`` over equal-size folds), extended with the

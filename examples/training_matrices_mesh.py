@@ -1,6 +1,6 @@
 """Scaling over a device mesh: row-sharded fit + fold-sharded fold math.
 
-Run on a multi-chip TPU slice, or simulate on CPU with:
+Run on a multi-GPU host, or simulate on CPU with:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/training_matrices_mesh.py
 """

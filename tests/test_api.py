@@ -249,18 +249,49 @@ def test_float16_dtype():
     np.testing.assert_allclose(np.asarray(a, np.float64), na, rtol=0.15)
 
 
-def test_enable_persistent_cache(tmp_path):
+def test_enable_persistent_cache(tmp_path, monkeypatch):
     """Cache helper sets the JAX knobs and creates the directory."""
     import jax
 
     from cvmatrix_tpu.utils import enable_persistent_cache
 
     d = str(tmp_path / "xla-cache")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
     try:
-        got = enable_persistent_cache(d)
+        got = enable_persistent_cache()
         assert got == d
         assert os.path.isdir(d)
         assert jax.config.jax_compilation_cache_dir == d
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.0
+    finally:
+        jax.config.update("jax_compilation_cache_dir", None)
+
+
+@pytest.mark.parametrize("case", ["env_set", "env_unset", "second_call"])
+def test_persistent_cache_location(tmp_path, monkeypatch, case):
+    """JAX_COMPILATION_CACHE_DIR wins when set and no other directory is
+    configured; unset, the cache lives at one fixed path inside the
+    checkout, the same on every call."""
+    import jax
+
+    from cvmatrix_tpu.utils import enable_persistent_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fixed = os.path.join(repo, ".jax_cache")
+    try:
+        if case == "env_set":
+            d = str(tmp_path / "from-env")
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+            assert enable_persistent_cache() == d
+            assert jax.config.jax_compilation_cache_dir == d
+            assert os.listdir(tmp_path) == ["from-env"]
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            first = enable_persistent_cache()
+            assert first == fixed and os.path.isdir(fixed)
+            assert jax.config.jax_compilation_cache_dir == fixed
+            if case == "second_call":
+                assert enable_persistent_cache() == first
     finally:
         jax.config.update("jax_compilation_cache_dir", None)
 

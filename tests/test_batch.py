@@ -1,169 +1,34 @@
-"""Batched Pallas-backed training matrices vs the vmapped XLA engine.
+"""Batched training matrices: the vmapped engine vs the eager per-fold one."""
 
-On CPU the kernels run through the Pallas interpreter (f32 semantics
-preserved), so the double-float error model is exercised for real: the df64
-path must agree with the f64 engine far inside the 1e-8 contract.
-"""
-
-from itertools import product
-
-import jax
-import jax.experimental.pallas as pl
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose
 
-from cvmatrix_tpu import CVConfig, Partitioner, fit
+from cvmatrix_tpu import CVConfig, CVMatrix, Partitioner, fit
 from cvmatrix_tpu.core.batch import training_matrices_batched
 
-from .data import make_dataset, zero_fraction
+from .data import make_dataset
 
 X_ALL, Y_ALL, FOLDS, WEIGHTS = make_dataset(n=200, k=6, m=2)
 
 
-@pytest.fixture
-def interpret_pallas(monkeypatch):
-    import cvmatrix_tpu.ops.kernels as kernels
-
-    orig = pl.pallas_call
-
-    def interp(*a, **k):
-        k["interpret"] = True
-        return orig(*a, **k)
-
-    monkeypatch.setattr(kernels.pl, "pallas_call", interp)
-
-
-def _run_both(cfg, X, Y, w, idx, mask, **kw):
-    st = fit(cfg, X, Y, w)
-    ref = training_matrices_batched(cfg, st, idx, mask, impl="xla", **kw)
-    got = training_matrices_batched(cfg, st, idx, mask, impl="pallas", **kw)
-    return ref, got
-
-
-def _assert_close(ref, got, atol):
-    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got)):
-        assert_allclose(np.asarray(b), np.asarray(a), atol=atol, rtol=0)
-
-
-@pytest.mark.parametrize("use_w", [False, True])
-@pytest.mark.parametrize("fold_rows", ["small", "large"])
-def test_df64_batch_flag_lattice(interpret_pallas, use_w, fold_rows):
-    """All 16 combos, f64 pairs vs XLA f64 at 1e-10 (contract is 1e-8).
-
-    ``small`` folds (8 rows) exercise the packed VPU-accumulation kernel;
-    ``large`` folds (>= LARGE_FOLD_ROWS) the MXU-product + epilogue kernel.
-    """
-    if fold_rows == "small":
-        p = Partitioner(np.arange(X_ALL.shape[0]) % 25)  # folds of 8 rows
-    else:
-        p = Partitioner(FOLDS)  # 3 unequal folds, dozens of rows each
-    keys, idx, mask = p.padded_batches()
-    w = zero_fraction(WEIGHTS) if use_w else None
-    for cx, cy, sx, sy in product([False, True], repeat=4):
-        cfg = CVConfig(cx, cy, sx, sy, ddof=1, dtype=np.float64)
-        ref, got = _run_both(cfg, X_ALL, Y_ALL, w, idx, mask)
-        _assert_close(ref, got, 1e-10)
-
-
-def test_df64_batch_xtx_only_and_xty_only(interpret_pallas):
+@pytest.mark.parametrize("return_XTX,return_XTY", [(True, False),
+                                                   (False, True)])
+def test_batch_one_sided_matches_eager(return_XTX, return_XTY):
+    """XTX-only and XTY-only batches over padded+masked unequal folds."""
     cfg = CVConfig(True, False, True, False, ddof=0, dtype=np.float64)
-    p = Partitioner(FOLDS)
-    keys, idx, mask = p.padded_batches()
-    ref, got = _run_both(cfg, X_ALL, Y_ALL, WEIGHTS, idx, mask,
-                         return_XTY=False)
-    _assert_close(ref, got, 1e-10)
-    ref, got = _run_both(cfg, X_ALL, Y_ALL, WEIGHTS, idx, mask,
-                         return_XTX=False)
-    _assert_close(ref, got, 1e-10)
-
-
-def test_df64_batch_loocv_unmasked(interpret_pallas):
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
-    idx = np.arange(24)[:, None]  # LOOCV on the first 24 rows
-    ref, got = _run_both(cfg, X_ALL, Y_ALL, WEIGHTS, idx, None)
-    _assert_close(ref, got, 1e-10)
-
-
-def test_df64_pair_output(interpret_pallas):
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
     st = fit(cfg, X_ALL, Y_ALL, WEIGHTS)
-    idx = np.arange(8)[:, None]
-    (rx, ry), _ = training_matrices_batched(cfg, st, idx, impl="xla")
-    (px, py), _ = training_matrices_batched(
-        cfg, st, idx, impl="pallas", pair_output=True
-    )
-    gx = px[:, 0].astype(np.float64) + px[:, 1].astype(np.float64)
-    gy = py[:, 0].astype(np.float64) + py[:, 1].astype(np.float64)
-    assert_allclose(np.asarray(gx), np.asarray(rx), atol=1e-10, rtol=0)
-    assert_allclose(np.asarray(gy), np.asarray(ry), atol=1e-10, rtol=0)
-
-
-def test_f32_batch_kernel(interpret_pallas):
-    """f32 engine routes through the MXU downdate kernel (large folds)."""
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float32)
+    ref = CVMatrix(True, False, True, False, 0).fit(X_ALL, Y_ALL, WEIGHTS)
     p = Partitioner(FOLDS)
     keys, idx, mask = p.padded_batches()
-    ref, got = _run_both(cfg, X_ALL.astype(np.float32),
-                         Y_ALL.astype(np.float32),
-                         WEIGHTS.astype(np.float32), idx, mask)
-    # f32 contract: downdate magnitudes here are O(100); 1e-3 abs ~ 1e-5 rel
-    _assert_close(ref, got, 1e-2)
-
-
-@pytest.mark.parametrize("flags", [(True, True, True, True),
-                                   (False, True, False, True),
-                                   (False, False, False, False)])
-def test_f32_packed_small_folds(interpret_pallas, flags):
-    """f32 engine, small folds: the packed single-precision kernel."""
-    cfg = CVConfig(*flags, ddof=1, dtype=np.float32)
-    p = Partitioner(np.arange(X_ALL.shape[0]) % 25)  # folds of 8 rows
-    keys, idx, mask = p.padded_batches()
-    ref, got = _run_both(cfg, X_ALL.astype(np.float32),
-                         Y_ALL.astype(np.float32),
-                         WEIGHTS.astype(np.float32), idx, mask)
-    _assert_close(ref, got, 1e-2)
-    # untrimmed raw output covers the sweep's hoisted consumption path
-    st = fit(cfg, X_ALL.astype(np.float32), Y_ALL.astype(np.float32),
-             WEIGHTS.astype(np.float32))
-    raw, _ = training_matrices_batched(cfg, st, idx, mask, impl="pallas",
-                                       trim_output=False)
-    assert raw.ndim == 3 and raw.shape[1] % 128 == 0
-
-
-def test_batch_syrk_knob_routes_and_matches(interpret_pallas, monkeypatch):
-    """CVMATRIX_TPU_BATCH_SYRK routing: the wide-K (non-fused) batched
-    downdate takes the SYRK contraction when the knob is on, and the padded
-    product matches the full-contraction route."""
-    from cvmatrix_tpu.core import batch as B
-    from cvmatrix_tpu.ops import precise as PR
-
-    calls = {"n": 0}
-    real = PR.symmetric_contract
-
-    def spy(a, b, k, **kw):
-        calls["n"] += 1
-        return real(a, b, k, **kw)
-
-    monkeypatch.setattr(PR, "_SYRK_MIN_K", 4)
-    monkeypatch.setattr(PR, "symmetric_contract", spy)
-    rng = np.random.default_rng(5)
-    # m >> k makes cp > kp, defeating the all-in-one fused kernel so the
-    # split MXU-product branch (the one the knob routes) runs.
-    X, Y, w = rng.random((200, 6)), rng.random((200, 130)), rng.random(200)
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64,
-                   matmul_mode="exact")
-    p = Partitioner(FOLDS)
-    keys, idx, mask = p.padded_batches()
-    st = fit(cfg, X, Y, w)
-    base = training_matrices_batched(cfg, st, idx, mask, impl="pallas")
-    n0 = calls["n"]  # fit routes through SYRK too; count only the sweep
-    from cvmatrix_tpu.policy import RoutingPolicy
-    monkeypatch.setattr(B, "_policy",
-                        lambda: RoutingPolicy(batch_syrk=True))
-    got = training_matrices_batched(cfg, st, idx, mask, impl="pallas")
-    assert calls["n"] > n0
-    _assert_close(base, got, 1e-10)
+    got, _ = training_matrices_batched(
+        cfg, st, idx, mask, return_XTX=return_XTX, return_XTY=return_XTY)
+    for i, k in enumerate(keys):
+        vi = p.get_validation_indices(k)
+        want, _ = (ref.training_XTX(vi) if return_XTX
+                   else ref.training_XTY(vi))
+        assert_allclose(np.asarray(got[i]), np.asarray(want), atol=1e-10,
+                        rtol=0)
 
 
 def test_batch_errors():
@@ -175,215 +40,3 @@ def test_batch_errors():
     st_no_y = fit(cfg, X_ALL, None, WEIGHTS)
     with pytest.raises(ValueError, match="not provided"):
         training_matrices_batched(cfg, st_no_y, np.arange(4)[:, None])
-    with pytest.raises(ValueError, match="pair_output"):
-        training_matrices_batched(cfg, st, np.arange(4)[:, None],
-                                  impl="xla", pair_output=True)
-
-
-def test_large_fold_threshold_per_shape():
-    """MXU-path crossover: 10 rows when the fused Ozaki kernel applies,
-    32 for shapes that would take the HBM-round-tripping split pipeline."""
-    from cvmatrix_tpu.core.batch import (
-        FUSED_LARGE_FOLD_ROWS, LARGE_FOLD_ROWS, large_fold_threshold)
-
-    cfg = CVConfig(True, True, True, True, 1, dtype=np.float64)
-    st = fit(cfg, X_ALL, Y_ALL, WEIGHTS)  # K=6 -> single square tile
-    assert large_fold_threshold(cfg, st, True, True) == FUSED_LARGE_FOLD_ROWS
-    # XTY-only: Kp != Cp -> split pipeline threshold
-    assert large_fold_threshold(cfg, st, False, True) == LARGE_FOLD_ROWS
-    # native matmul mode: no exact path -> split pipeline threshold
-    cfg_nat = CVConfig(True, True, True, True, 1, dtype=np.float64,
-                       matmul_mode="native")
-    assert large_fold_threshold(cfg_nat, st, True, True) == LARGE_FOLD_ROWS
-    # f32 engine: no fused Ozaki variant
-    cfg32 = CVConfig(True, True, True, True, 1, dtype=np.float32)
-    st32 = fit(cfg32, X_ALL.astype(np.float32), Y_ALL.astype(np.float32))
-    assert large_fold_threshold(cfg32, st32, True, True) == LARGE_FOLD_ROWS
-
-
-def test_prepare_loocv_sources_requires_xtx():
-    """The packed tile layout places Y at [K, K+M) of the XTX tile; without
-    the XTX side the operands would be silently misaligned (round-3 review
-    finding) — prepare must refuse instead."""
-    from cvmatrix_tpu.core import batch as B
-
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
-    st = fit(cfg, X_ALL[:, :20], Y_ALL, WEIGHTS)
-    idx = np.arange(8).reshape(8, 1)
-    with pytest.raises(ValueError, match="return_XTX"):
-        B.prepare_loocv_sources(cfg, st, idx, return_XTX=False,
-                                return_XTY=True)
-
-
-def test_prepare_ozaki_sources_rejects_y_less_shared_planes():
-    """with_y=False planes have the same shapes but zero Y columns — the
-    kernel would silently skip the XTY downdate (round-3 review finding)."""
-    from cvmatrix_tpu.core import batch as B
-
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
-    st = fit(cfg, X_ALL[:, :20], Y_ALL, WEIGHTS)
-    idx = np.arange(80).reshape(2, 40)
-    planes = B.dataset_planes(cfg, st, with_y=False, n_slices=10)
-    with pytest.raises(ValueError, match="with_y"):
-        B.prepare_ozaki_sources(cfg, st, idx, return_XTY=True,
-                                planes=planes)
-
-
-def test_prepare_loocv_sources_f32_presplit_default():
-    """The f32 engine reads total plane 0 only; the presplit default must
-    not build the 4-plane split for it (doubles VMEM staging for nothing)."""
-    from cvmatrix_tpu.core import batch as B
-
-    cfg32 = CVConfig(True, True, True, True, ddof=1, dtype=np.float32)
-    st32 = fit(cfg32, X_ALL[:, :20].astype(np.float32),
-               Y_ALL.astype(np.float32), WEIGHTS.astype(np.float32))
-    idx = np.arange(8).reshape(8, 1)
-    src32 = B.prepare_loocv_sources(cfg32, st32, idx)
-    assert src32.total4.shape[0] == 2  # (total_hi-ish pair), not 4 planes
-    cfg64 = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
-    st64 = fit(cfg64, X_ALL[:, :20], Y_ALL, WEIGHTS)
-    src64 = B.prepare_loocv_sources(cfg64, st64, idx)
-    assert src64.total4.shape[0] == 4  # f64 scaling path presplits
-
-
-@pytest.mark.parametrize("use_w,use_mask", [(True, False), (False, False),
-                                            (True, True)])
-def test_from_blocks_v3_route(use_w, use_mask):
-    """Pre-gathered blocks at mid-band fold sizes route through the v3
-    fused Ozaki kernel (the mesh fold path's hot route) and agree with the
-    vmapped XLA engine. Interpret mode = wiring check (loose tolerance:
-    the CPU interpreter fuses a*b+c, see module docstring); hardware
-    parity is pinned by benchmarks/tpu_batch/mesh_parity.py."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.core import batch as B
-
-    rng = np.random.default_rng(3)
-    n, k, m, f_folds, n_l = 240, 100, 5, 6, 12
-    X = rng.random((n, k))
-    Y = rng.random((n, m))
-    w = zero_fraction(rng.random(n)) if use_w else None
-    cfg = CVConfig(True, True, True, True, ddof=1)
-    st = fit(cfg, X, Y, w)
-    assert B.ozaki_v3_ok(cfg, st, True, True, n_l)
-    assert n_l >= B.large_fold_threshold(cfg, st, True, True)
-
-    idx = jnp.asarray(
-        rng.permutation(n)[: f_folds * n_l].reshape(f_folds, n_l))
-    mask = None
-    if use_mask:
-        mask = np.ones((f_folds, n_l))
-        mask[:, -3:] = 0.0  # unequal true fold sizes
-        mask = jnp.asarray(mask)
-
-    blocks, stats5 = B._gather_and_stats(cfg, st, idx, mask, True, True)
-    (kx, ky), kstats = B.batched_matrices_from_blocks(
-        cfg, st, blocks, stats5, impl="pallas", interpret=True)
-    (rx, ry), rstats = B.batched_matrices_from_blocks(
-        cfg, st, blocks, stats5, impl="xla")
-    assert_allclose(np.asarray(kx), np.asarray(rx), rtol=1e-5, atol=1e-2)
-    assert_allclose(np.asarray(ky), np.asarray(ry), rtol=1e-5, atol=1e-2)
-    for ks, rs in zip(kstats, rstats):
-        if rs is None:
-            assert ks is None
-        else:
-            assert_allclose(np.asarray(ks), np.asarray(rs), atol=1e-8)
-
-
-@pytest.mark.parametrize("use_w", [True, False])
-@pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_from_blocks_loocv_route(use_w, dtype):
-    """Pre-gathered single-row blocks route through the all-in-one LOOCV
-    kernels (the mesh LOOCV fold path) and agree with the vmapped XLA
-    engine (loose: interpret mode, see module docstring)."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.core import batch as B
-
-    rng = np.random.default_rng(5)
-    n, k, m, f_folds = 200, 100, 5, 16
-    X = rng.random((n, k)).astype(dtype)
-    Y = rng.random((n, m)).astype(dtype)
-    w = zero_fraction(rng.random(n)).astype(dtype) if use_w else None
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=dtype)
-    st = fit(cfg, X, Y, w)
-    assert B.loocv_single_tile_ok(cfg, st, True, True)
-
-    idx = jnp.asarray(rng.permutation(n)[:f_folds].reshape(f_folds, 1))
-    blocks, stats5 = B._gather_and_stats(cfg, st, idx, None, True, True)
-    (kx, ky), kstats = B.batched_matrices_from_blocks(
-        cfg, st, blocks, stats5, impl="pallas", interpret=True)
-    (rx, ry), rstats = B.batched_matrices_from_blocks(
-        cfg, st, blocks, stats5, impl="xla")
-    tol = dict(rtol=1e-5, atol=1e-2) if dtype == np.float64 else \
-        dict(rtol=1e-2, atol=1e-1)
-    assert_allclose(np.asarray(kx), np.asarray(rx), **tol)
-    assert_allclose(np.asarray(ky), np.asarray(ry), **tol)
-    for ks, rs in zip(kstats, rstats):
-        if rs is None:
-            assert ks is None
-        else:
-            assert_allclose(np.asarray(ks), np.asarray(rs),
-                            atol=1e-8 if dtype == np.float64 else 1e-4)
-
-
-def test_from_blocks_routes_with_globals_only_state():
-    """The mesh fold math receives a globals-only state (data fields incl.
-    weights stripped — parallel.distributed._globals_only); the from-blocks
-    routes must read weightedness from the BLOCKS. Regression: the LOOCV
-    route aliased the unweighted stream to the weighted one under
-    shard_map (0.4% relative error at TTTT)."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.core import batch as B
-    from cvmatrix_tpu.parallel.distributed import _globals_only
-
-    rng = np.random.default_rng(7)
-    n, k, m = 220, 40, 3
-    X, Y = rng.random((n, k)), rng.random((n, m))
-    w = zero_fraction(rng.random(n))
-    cfg = CVConfig(True, True, True, True, ddof=1)
-    st = fit(cfg, X, Y, w)
-    go = _globals_only(cfg, st)
-    for n_l in (1, 12):  # LOOCV route and v3 route
-        idx = jnp.asarray(
-            rng.permutation(n)[: 8 * n_l].reshape(8, n_l))
-        blocks, stats5 = B._gather_and_stats(cfg, st, idx, None, True, True)
-        (kx, ky), _ = B.batched_matrices_from_blocks(
-            cfg, go, blocks, stats5, impl="pallas", interpret=True)
-        (rx, ry), _ = B.batched_matrices_from_blocks(
-            cfg, st, blocks, stats5, impl="xla")
-        assert_allclose(np.asarray(kx), np.asarray(rx), rtol=1e-5, atol=1e-2)
-        assert_allclose(np.asarray(ky), np.asarray(ry), rtol=1e-5, atol=1e-2)
-
-
-def test_blocked_product_routes_and_matches(interpret_pallas, monkeypatch):
-    """Genomics-wide default route: above _BLOCKED_PROD_MIN_KP the
-    large-fold path computes the downdate product with the column-blocked
-    in-place pair contraction; results match the unblocked route."""
-    from cvmatrix_tpu.core import batch as B
-    from cvmatrix_tpu.ops import precise as PR
-
-    rng = np.random.default_rng(7)
-    # m >> k defeats the all-in-one fused kernel (cp > kp) so the split
-    # MXU-product branch runs; folds of 50 rows >= LARGE_FOLD_ROWS.
-    X, Y, w = rng.random((200, 6)), rng.random((200, 130)), rng.random(200)
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64,
-                   matmul_mode="exact")
-    p = Partitioner(np.arange(200) % 4)
-    keys, idx, mask = p.padded_batches()
-    st = fit(cfg, X, Y, w)
-    base = training_matrices_batched(cfg, st, idx, mask, impl="pallas")
-
-    calls = {"n": 0}
-    real = PR.blocked_pair_contract
-
-    def spy(a, b, **kw):
-        calls["n"] += 1
-        return real(a, b, **kw)
-
-    monkeypatch.setattr(PR, "blocked_pair_contract", spy)
-    monkeypatch.setattr(B, "_BLOCKED_PROD_MIN_KP", 8)
-    got = training_matrices_batched(cfg, st, idx, mask, impl="pallas")
-    assert calls["n"] > 0
-    _assert_close(base, got, 1e-10)

@@ -134,57 +134,11 @@ def test_sharded_untrimmed_keeps_fold_sharding(mesh):
     assert_allclose(np.asarray(xtx_p[n]), np.asarray(xtx_p[0]), atol=0)
 
 
-# --------------------------------------------------------------------------- #
-# Kernel-routed mesh path (round 2): same Pallas routing as single-chip       #
-# --------------------------------------------------------------------------- #
-# Interpret mode is a WIRING check only: Pallas interpret on CPU fuses a*b+c
-# into an f64 FMA, silently breaking double-float compensation by ~1 ulp of
-# the output (see .claude/skills/verify), so tolerances here are loose; exact
-# kernel parity runs on real TPU (tests/test_loocv_kernel.py and the bench).
-
 from cvmatrix_tpu.parallel.distributed import sharded_cross_validate_reduce
 
 
-def test_sharded_kernel_path_small_folds(mesh):
-    """LOOCV-style folds route through the packed df64 kernel under shard_map."""
-    cfg = CVConfig(True, True, True, True, 1)
-    w = zero_fraction(WEIGHTS)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, w)
-    idx = np.arange(16)[:, None]
-    (kx, ky), kstats = sharded_training_matrices(
-        cfg, st, idx, mesh=mesh, impl="pallas", interpret=True
-    )
-    (rx, ry), rstats = sharded_training_matrices(cfg, st, idx, mesh=mesh,
-                                                 impl="xla")
-    assert_allclose(np.asarray(kx), np.asarray(rx), rtol=1e-5, atol=1e-2)
-    assert_allclose(np.asarray(ky), np.asarray(ry), rtol=1e-5, atol=1e-2)
-    for ks, rs in zip(kstats, rstats):
-        if rs is not None:
-            assert_allclose(np.asarray(ks), np.asarray(rs), atol=1e-6)
-
-
-@pytest.mark.parametrize("flags", [(True, True, True, True),
-                                   (False, False, False, False)])
-def test_sharded_kernel_path_large_folds(mesh, flags):
-    """Natural (padded+masked) folds route through the epilogue kernel."""
-    cx, cy, sx, sy = flags
-    cfg = CVConfig(cx, cy, sx, sy, 1)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    p = Partitioner(FOLDS)
-    _, idx, mask = p.padded_batches()
-    (kx, ky), _ = sharded_training_matrices(
-        cfg, st, idx, mask, mesh=mesh, impl="pallas", interpret=True
-    )
-    (rx, ry), _ = sharded_training_matrices(cfg, st, idx, mask, mesh=mesh,
-                                            impl="xla")
-    assert_allclose(np.asarray(kx), np.asarray(rx), rtol=1e-5, atol=1e-2)
-    assert_allclose(np.asarray(ky), np.asarray(ry), rtol=1e-5, atol=1e-2)
-
-
-@pytest.mark.parametrize("impl,interp,tol", [("xla", False, 1e-8),
-                                             ("pallas", True, 1e-2)])
-def test_sharded_reduce(mesh, impl, interp, tol):
-    """Single-program mesh sweep with on-device reduction, both impls."""
+def test_sharded_reduce(mesh):
+    """Single-program mesh sweep with on-device reduction."""
     import jax.numpy as jnp
 
     cfg = CVConfig(True, True, True, True, 1)
@@ -200,13 +154,12 @@ def test_sharded_reduce(mesh, impl, interp, tol):
 
     red = sharded_cross_validate_reduce(
         cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=16,
-        impl=impl, interpret=interp,
     )
     assert red.shape == (n_folds,)
     for i in (0, 17, n_folds - 1):
         (xtx, xty), _ = ref.training_XTX_XTY(np.array([i]))
         want = float(np.trace(np.asarray(xtx)) + np.sum(np.asarray(xty)))
-        assert abs(float(red[i]) - want) < tol * max(1.0, abs(want))
+        assert abs(float(red[i]) - want) < 1e-8 * max(1.0, abs(want))
 
 
 def test_sharded_programs_are_cached(mesh):
@@ -232,8 +185,8 @@ def test_sharded_programs_are_cached(mesh):
     f0 = D._fold_math_program.cache_info().hits
     for _ in range(2):
         red = sharded_cross_validate_reduce(
-            cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, impl="xla")
-        out = sharded_training_matrices(cfg, st, idx, mesh=mesh, impl="xla")
+            cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn)
+        out = sharded_training_matrices(cfg, st, idx, mesh=mesh)
     assert D._reduce_program_cached.cache_info().hits > h0
     assert D._gather_program.cache_info().hits > g0
     assert D._fold_math_program.cache_info().hits > f0
@@ -255,8 +208,7 @@ def test_reduce_program_cache_survives_fresh_lambdas(mesh):
     def call(scale):
         return sharded_cross_validate_reduce(
             cfg, st, idx, mesh=mesh,
-            reduce_fn=lambda mats, stats: jnp.trace(mats[0]) * scale,
-            impl="xla")
+            reduce_fn=lambda mats, stats: jnp.trace(mats[0]) * scale)
 
     m0 = D._reduce_program_cached.cache_info().misses
     a = call(1.0)
@@ -271,270 +223,34 @@ def test_reduce_program_cache_survives_fresh_lambdas(mesh):
     np.testing.assert_allclose(np.asarray(c), 2.0 * np.asarray(a))
 
 
-def test_mesh_kernel_path_f32_large_folds(mesh):
-    """f32 large folds on the mesh route through the MXU downdate path
-    (regression: they previously fell to the O(L)-step packed VPU kernel,
-    contradicting the single-chip routing parity contract)."""
-    cfg = CVConfig(True, True, True, True, 1, dtype=np.float32)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    idx = np.arange(128).reshape(4, 32)  # n_l = 32 >= LARGE_FOLD_ROWS
-    (kx, ky), _ = sharded_training_matrices(
-        cfg, st, idx, mesh=mesh, impl="pallas", interpret=True
-    )
-    (rx, ry), _ = sharded_training_matrices(cfg, st, idx, mesh=mesh,
-                                            impl="xla")
-    assert_allclose(np.asarray(kx), np.asarray(rx), rtol=1e-3, atol=1e-1)
-    assert_allclose(np.asarray(ky), np.asarray(ry), rtol=1e-3, atol=1e-1)
-
-
 @pytest.mark.parametrize("use_w", [False, True])
-def test_mesh_loocv_identity_fast_path(mesh, use_w):
-    """Natural-order LOOCV dispatches to the zero-collective shard-local
-    sweep (folds == rows under row sharding) and matches the generic mesh
-    reduce path. Covers the tail step (R=75 not a multiple of bs_local=16),
-    weighted and unweighted (the unweighted count downdate must use the
-    GLOBAL row count, not the shard's)."""
+@pytest.mark.parametrize("flags", [(True, True, True, True),
+                                   (False, False, False, False),
+                                   (True, False, False, True),
+                                   (False, True, True, False)],
+                         ids=lambda f: "".join("T" if b else "F" for b in f))
+def test_mesh_reduce_matches_one_device(mesh, flags, use_w):
+    """The 8-device mesh sweep agrees with the one-device sweep on uneven
+    (padded + masked) folds and on LOOCV, per fold, at 1e-8."""
     import jax.numpy as jnp
 
-    from cvmatrix_tpu.parallel import distributed as D
+    from cvmatrix_tpu.models.sweep import cross_validate_reduce
 
-    cfg = CVConfig(True, True, True, True, 1)
+    cfg = CVConfig(*flags, 1)
     w = zero_fraction(WEIGHTS) if use_w else None
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, w)
-    n = X_ALL.shape[0]
-    idx = np.arange(n)[:, None]
+    st_mesh = fit_sharded(cfg, mesh, X_ALL, Y_ALL, w)
+    st_one = fit(cfg, X_ALL, Y_ALL, w)
 
-    def reduce_fn(mats, stats):
+    def digest(mats, stats):
         xtx, xty = mats
-        return jnp.trace(xtx) + jnp.sum(xty) + jnp.sum(stats[0])
+        return jnp.stack([xtx[0, 0], xtx[-1, -1], xty[0, 0], jnp.trace(xtx)])
 
-    m0 = D._loocv_identity_program.cache_info().misses
-    red = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=128,
-        impl="pallas", interpret=True,
-    )
-    assert D._loocv_identity_program.cache_info().misses == m0 + 1
-    assert red.shape == (n,)
-    ref = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=128,
-        impl="xla",
-    )
-    assert_allclose(np.asarray(red), np.asarray(ref), rtol=1e-5, atol=1e-2)
-
-
-def test_mesh_loocv_identity_fast_path_f32(mesh):
-    """f32 engine variant of the LOOCV identity fast path."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.parallel import distributed as D
-
-    cfg = CVConfig(True, True, True, True, 1, dtype=np.float32)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    n = X_ALL.shape[0]
-    idx = np.arange(n)[:, None]
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0]) + jnp.sum(mats[1])
-
-    m0 = D._loocv_identity_program.cache_info().misses
-    red = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=128,
-        impl="pallas", interpret=True,
-    )
-    assert D._loocv_identity_program.cache_info().misses == m0 + 1
-    ref = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=128,
-        impl="xla",
-    )
-    assert_allclose(np.asarray(red), np.asarray(ref), rtol=1e-3, atol=1e-1)
-
-
-def test_mesh_loocv_non_identity_stays_generic(mesh):
-    """Shuffled LOOCV indices (and short prefixes) must NOT dispatch to the
-    locality fast path — it assumes fold i's validation row is row i."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.parallel import distributed as D
-
-    cfg = CVConfig(True, True, True, True, 1)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    rng = np.random.default_rng(7)
-    perm = rng.permutation(X_ALL.shape[0])[:, None]
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0])
-
-    m0 = D._loocv_identity_program.cache_info().misses
-    red = sharded_cross_validate_reduce(
-        cfg, st, perm, mesh=mesh, reduce_fn=reduce_fn, batch_size=64,
-        impl="pallas", interpret=True,
-    )
-    assert D._loocv_identity_program.cache_info().misses == m0
-    # short prefix (< half the dataset): generic path too
-    sharded_cross_validate_reduce(
-        cfg, st, np.arange(16)[:, None], mesh=mesh, reduce_fn=reduce_fn,
-        batch_size=64, impl="pallas", interpret=True,
-    )
-    assert D._loocv_identity_program.cache_info().misses == m0
-    # agreement with the identity order through the permutation
-    idn = sharded_cross_validate_reduce(
-        cfg, st, np.arange(X_ALL.shape[0])[:, None], mesh=mesh,
-        reduce_fn=reduce_fn, batch_size=64, impl="pallas", interpret=True,
-    )
-    assert_allclose(np.asarray(red), np.asarray(idn)[perm[:, 0]],
-                    rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("use_w", [False, True])
-def test_mesh_smallfold_hoisted_path(mesh, use_w):
-    """Small-L folds with the Pallas impl dispatch to the one-collective
-    hoisted-prep program (``_smallfold_program``) and match the generic
-    xla mesh path — arbitrary fold order, uneven fold count (padding),
-    weighted and unweighted."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.parallel import distributed as D
-
-    cfg = CVConfig(True, True, True, True, 1)
-    w = zero_fraction(WEIGHTS) if use_w else None
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, w)
-    rng = np.random.default_rng(11)
-    idx = np.stack([rng.permutation(X_ALL.shape[0])[:5] for _ in range(19)])
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0]) + jnp.sum(mats[1]) + jnp.sum(stats[0])
-
-    m0 = D._smallfold_program.cache_info().misses
-    red = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=16,
-        impl="pallas", interpret=True,
-    )
-    assert D._smallfold_program.cache_info().misses == m0 + 1
-    assert red.shape == (19,)
-    ref = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=16,
-        impl="xla",
-    )
-    assert_allclose(np.asarray(red), np.asarray(ref), rtol=1e-5, atol=1e-2)
-
-
-def test_mesh_smallfold_masked_f32(mesh):
-    """f32 engine + padded-fold masks through the hoisted small-fold mesh
-    program (masks ride the gathered blocks into prepare_fold_operands)."""
-    import jax.numpy as jnp
-
-    cfg = CVConfig(True, False, True, False, 0, dtype=np.float32)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, None)
-    rng = np.random.default_rng(12)
-    idx = np.stack([rng.permutation(X_ALL.shape[0])[:4] for _ in range(13)])
-    mk = (rng.random((13, 4)) > 0.25).astype(np.float64)
-    mk[:, 0] = 1.0
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0])
-
-    red = sharded_cross_validate_reduce(
-        cfg, st, idx, mk, mesh=mesh, reduce_fn=reduce_fn, batch_size=8,
-        impl="pallas", interpret=True,
-    )
-    ref = sharded_cross_validate_reduce(
-        cfg, st, idx, mk, mesh=mesh, reduce_fn=reduce_fn, batch_size=8,
-        impl="xla",
-    )
-    assert_allclose(np.asarray(red), np.asarray(ref), rtol=1e-3, atol=1e-1)
-
-
-def test_mesh_large_folds_stay_generic(mesh):
-    """L >= LARGE_FOLD_ROWS must NOT take the hoisted small-fold program
-    (large folds belong to the MXU-product chunk path)."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.parallel import distributed as D
-
-    cfg = CVConfig(True, True, True, True, 1, dtype=np.float32)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    idx = np.arange(128).reshape(4, 32)  # n_l = 32 >= LARGE_FOLD_ROWS
-
-    m0 = D._smallfold_program.cache_info().misses
-    sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh,
-        reduce_fn=lambda m, s: jnp.trace(m[0]), batch_size=8,
-        impl="pallas", interpret=True,
-    )
-    assert D._smallfold_program.cache_info().misses == m0
-
-
-@pytest.mark.parametrize("masked", [False, True])
-def test_mesh_v3_hoisted_path(mesh, masked):
-    """Mid-band (L >= threshold, v3-eligible) folds with the Pallas impl
-    dispatch to the per-device hoisted v3 program and match the generic
-    xla mesh path — including padded-row masks."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.core.batch import large_fold_threshold
-    from cvmatrix_tpu.parallel import distributed as D
-
-    cfg = CVConfig(True, True, True, True, 1)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    L = large_fold_threshold(cfg, st, True, True)
-    rng = np.random.default_rng(13)
-    idx = np.stack([rng.permutation(X_ALL.shape[0])[:L] for _ in range(11)])
-    mk = None
-    if masked:
-        mk = (rng.random((11, L)) > 0.25).astype(np.float64)
-        mk[:, 0] = 1.0
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0]) + jnp.sum(mats[1]) + jnp.sum(stats[0])
-
-    # mask presence retraces inside the jitted program, not the builder —
-    # count builder CALLS (hits + misses), not misses alone.
-    i0 = D._sharded_v3_program.cache_info()
-    c0 = i0.hits + i0.misses
-    red = sharded_cross_validate_reduce(
-        cfg, st, idx, mk, mesh=mesh, reduce_fn=reduce_fn, batch_size=16,
-        impl="pallas", interpret=True,
-    )
-    i1 = D._sharded_v3_program.cache_info()
-    assert i1.hits + i1.misses == c0 + 1
-    ref = sharded_cross_validate_reduce(
-        cfg, st, idx, mk, mesh=mesh, reduce_fn=reduce_fn, batch_size=16,
-        impl="xla",
-    )
-    assert_allclose(np.asarray(red), np.asarray(ref), rtol=1e-5, atol=1e-2)
-
-
-def test_hoist_reduce_knob_routes_generic(mesh):
-    """set_routing(hoist_reduce=False) must send small-L folds down the
-    generic per-chunk mesh body instead of the hoisted program (the A/B
-    knob for the round-5 hoisted reduce sweeps)."""
-    import jax.numpy as jnp
-
-    from cvmatrix_tpu.parallel import distributed as D
-    from cvmatrix_tpu.policy import policy, set_routing
-
-    cfg = CVConfig(True, True, True, True, 1)
-    st = fit_sharded(cfg, mesh, X_ALL, Y_ALL, WEIGHTS)
-    rng = np.random.default_rng(21)
-    idx = np.stack([rng.permutation(X_ALL.shape[0])[:5] for _ in range(8)])
-
-    def reduce_fn(mats, stats):
-        return jnp.trace(mats[0])
-
-    base = policy()
-    try:
-        set_routing(hoist_reduce=False)
-        i0 = D._smallfold_program.cache_info()
-        off = sharded_cross_validate_reduce(
-            cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=8,
-            impl="pallas", interpret=True,
-        )
-        i1 = D._smallfold_program.cache_info()
-        assert (i1.hits + i1.misses) == (i0.hits + i0.misses)
-    finally:
-        set_routing(hoist_reduce=base.hoist_reduce)
-    on = sharded_cross_validate_reduce(
-        cfg, st, idx, mesh=mesh, reduce_fn=reduce_fn, batch_size=8,
-        impl="pallas", interpret=True,
-    )
-    assert_allclose(np.asarray(off), np.asarray(on), rtol=1e-5, atol=1e-2)
+    _, idx, mask = Partitioner(FOLDS).padded_batches()
+    for idx_b, mask_b in ((idx, mask), (np.arange(29)[:, None], None)):
+        got = sharded_cross_validate_reduce(
+            cfg, st_mesh, idx_b, mask_b, mesh=mesh, reduce_fn=digest,
+            batch_size=16)
+        want = np.asarray(cross_validate_reduce(
+            cfg, st_one, idx_b, mask_b, reduce_fn=digest, batch_size=16))
+        scale = max(1.0, float(np.abs(want).max()))
+        assert_allclose(np.asarray(got), want, atol=1e-8 * scale, rtol=0)

@@ -1,68 +1,12 @@
-"""Routing-policy surface: one knob home, in-process A/B via set_routing."""
+"""Code-keyed identity for user callbacks in program-cache keys."""
 
 import numpy as np
-import pytest
 
-from cvmatrix_tpu import CVConfig, RoutingPolicy, fit, policy, set_routing
-from cvmatrix_tpu.core import batch as B
+from cvmatrix_tpu import CVConfig, fit
 
 from .data import make_dataset
 
 X_ALL, Y_ALL, FOLDS, WEIGHTS = make_dataset(n=96, k=6, m=2)
-
-
-@pytest.fixture(autouse=True)
-def _restore_policy():
-    before = policy()
-    yield
-    set_routing(**{f: getattr(before, f)
-                   for f in RoutingPolicy.__dataclass_fields__})
-
-
-def test_defaults_are_the_shipped_configuration():
-    p = policy()
-    assert isinstance(p, RoutingPolicy)
-    # The validated defaults (flipped only on recorded hardware A/Bs).
-    assert p.ozaki_budget_log2 <= -30
-
-
-def test_set_routing_changes_trace_time_accessors():
-    set_routing(sym_loocv=True, f32x2=True, df64x2=True, batch_syrk=True)
-    assert B._sym_enabled() and B._f32x2_enabled() and B._df64x2_enabled()
-    set_routing(sym_loocv=False)
-    assert not B._sym_enabled()
-    assert B._f32x2_enabled()  # partial update leaves other fields alone
-
-
-def test_set_routing_rejects_unknown_field():
-    with pytest.raises(TypeError):
-        set_routing(not_a_knob=True)
-
-
-def test_set_routing_clears_program_caches():
-    from cvmatrix_tpu.models import sweep as S
-
-    cfg = CVConfig(True, True, True, True, ddof=1, dtype=np.float64)
-    st = fit(cfg, X_ALL, Y_ALL, WEIGHTS)
-    idx = np.arange(24).reshape(4, 6)
-    float(S.materialize_sweep(cfg, st, idx))
-    assert S._cv_fold_fn.cache_info().currsize >= 0  # registered lru lives
-    set_routing(df64x2=True)
-    # the jitted sweep program was cleared: its jit cache restarts empty
-    assert S._materialize_sweep_jit._cache_size() == 0
-    # and the sweep still runs (re-traces under the new policy)
-    float(S.materialize_sweep(cfg, st, idx))
-
-
-def test_ozaki_budget_flows_from_policy():
-    from cvmatrix_tpu.ops.kernels import ozaki_trim_groups
-
-    set_routing(ozaki_budget_log2=-36)
-    base = ozaki_trim_groups(32)
-    set_routing(ozaki_budget_log2=-31)
-    loose = ozaki_trim_groups(32)
-    assert loose < base
-    assert ozaki_trim_groups(32, budget_log2=-36) == base  # explicit wins
 
 
 def test_fn_cache_key_distinguishes_bound_methods():
@@ -112,8 +56,6 @@ def test_fn_cache_key_tracks_rebound_globals():
 def test_bound_method_reduce_fns_not_aliased_end_to_end():
     """cross_validate_reduce with bound-method reduce_fns from two
     instances returns different numbers (the round-3 review repro)."""
-    import jax.numpy as jnp
-
     from cvmatrix_tpu.models.sweep import cross_validate_reduce
 
     cfg = CVConfig(True, True, True, True, 1)

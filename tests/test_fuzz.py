@@ -20,10 +20,6 @@ from cvmatrix_tpu import CVMatrix, Partitioner
 from .data import train_indices
 from .oracle import NaiveOracle
 
-# Randomized sweeps vs the oracle: thorough but long; the fast PR loop
-# keeps directed oracle coverage via tests/test_parity.py.
-pytestmark = pytest.mark.slow
-
 N_SCENARIOS = 24
 # One seed per round (VERDICT r2 task 10): each round ADDS 24 fresh
 # scenarios instead of re-checking the same ones; old seeds stay pinned
@@ -142,7 +138,7 @@ def test_random_scenarios_batched_engine(case, seed):
     keys, idx, mask = p.padded_batches()
     cfg = CVConfig(*flags, ddof=ddof, dtype=np.float64)
     st = fit_fn(cfg, X, Y, w)
-    (bx, by), _ = training_matrices_batched(cfg, st, idx, mask, impl="xla")
+    (bx, by), _ = training_matrices_batched(cfg, st, idx, mask)
     fast = CVMatrix(*flags, ddof).fit(X, Y, w)
     for i, key in enumerate(keys):
         vi = p.get_validation_indices(key)

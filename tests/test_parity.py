@@ -192,7 +192,7 @@ def test_hadamard_equals_diag_weight_matmul():
 
 
 def test_exact_matmul_mode_matches_native_on_cpu():
-    """matmul_mode='exact' (the TPU f64 path) agrees with native f64."""
+    """matmul_mode='exact' (the int8-slice path) agrees with native f64."""
     X, Y = X_ALL[:, :5], Y_ALL
     p = Partitioner(FOLDS)
     exact = CVMatrix(matmul_mode="exact").fit(X, Y, WEIGHTS)

@@ -28,7 +28,7 @@ def _rows():
     for mode in ("nojit", "coldjit", "warmjit"):
         for p in (10, 1000, 100000):
             rows.append({
-                "model": f"CVMatrix-tpu-tpu-{mode}", "weights": True,
+                "model": f"CVMatrix-gpu-{mode}", "weights": True,
                 "P": p, "N": 100000, "K": 500, "M": 10,
                 "center_X": True, "center_Y": True,
                 "scale_X": True, "scale_Y": True,

@@ -1,4 +1,4 @@
-"""Accuracy contract of the precise contraction ops (the TPU f64 story)."""
+"""Accuracy contract of the precise contraction ops (native and exact modes)."""
 
 import jax
 import jax.numpy as jnp
@@ -101,8 +101,8 @@ def test_ozaki_group_paths_both_branches():
     """Both group recombinations (prefix-stack and scanned) are correct.
 
     Outputs above 2048^2 elements take the scanned one-int32-buffer form
-    (the unrolled prefix matmuls kept several multi-GB int32 products alive
-    at genomics-wide K and OOMed a 16 GB chip); small outputs keep the
+    (the unrolled prefix matmuls keep several multi-GB int32 products alive
+    at genomics-wide K); small outputs keep the
     faster prefix-stack form. Same math either way.
     """
     rng = np.random.default_rng(5)
@@ -112,46 +112,6 @@ def test_ozaki_group_paths_both_branches():
         got = np.asarray(ozaki_contract(a, b))
         ref = np.asarray(a).T @ np.asarray(b)
         assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) < 1e-12
-
-
-def test_slice_rows_kernel_exact_decomposition():
-    """Pair-arithmetic slicing: exact decomposition, int8 range, layouts."""
-    from cvmatrix_tpu.ops.df64 import df_from_f64
-    from cvmatrix_tpu.ops.kernels import slice_rows
-    from cvmatrix_tpu.ops.precise import _column_scale, _pow2
-
-    rng = np.random.default_rng(7)
-    x = rng.normal(size=(256, 128)) * 10.0 ** rng.integers(-6, 6, (1, 128))
-    e = _column_scale(jnp.asarray(x))
-    h1 = jnp.clip(-e, -127, 127)
-    pows = jnp.stack([jnp.ldexp(jnp.float32(1.0), h1),
-                      jnp.ldexp(jnp.float32(1.0), -e - h1)])
-    xh, xl = df_from_f64(jnp.asarray(x))
-    for row_major in (True, False):
-        sl = np.asarray(slice_rows(xh, xl, pows, row_major=row_major,
-                                   interpret=True))
-        if row_major:
-            assert sl.shape == (256, 10, 128)
-            stack = np.moveaxis(sl, 1, 0).astype(np.float64)
-        else:
-            assert sl.shape == (10, 256, 128)
-            stack = sl.astype(np.float64)
-        assert np.abs(stack).max() <= 65
-        recon = sum(stack[s] * 2.0 ** (-6 * (s + 1)) for s in range(10))
-        # The kernel consumes the f32 (hi, lo) PAIR, so the exactness
-        # contract is against the pair's value: hi+lo scaled into the
-        # column frame. That decomposition is exact to the 10x6-bit
-        # slice budget (~2^-58 of the column-max scale).
-        pair = (np.asarray(xh).astype(np.float64)
-                + np.asarray(xl).astype(np.float64))
-        scaled_pair = pair * np.asarray(_pow2(-e))[None, :]
-        assert np.max(np.abs(recon - scaled_pair)) < 2.0 ** -58
-        # Against the RAW f64 input the bound is the pair representation
-        # error: an f32 (hi, lo) pair carries ~49 bits of mantissa, so
-        # ~2^-47 of the column scale is the true contract (the 1e-8 API
-        # tolerance needs only ~2^-27).
-        scaled_raw = x * np.asarray(_pow2(-e))[None, :]
-        assert np.max(np.abs(recon - scaled_raw)) < 2.0 ** -47
 
 
 def test_symmetric_contract_matches_full():
@@ -286,26 +246,3 @@ def test_contract_rejects_unknown_mode():
     a = jnp.ones((4, 3))
     with pytest.raises(ValueError, match="matmul mode"):
         contract(a, a, mode="exakt")
-
-
-def test_blocked_pair_contract_bit_identical_and_accurate():
-    """Column-blocked in-place pair contraction: bit-identical planes to
-    the unblocked ozaki path (same exact int32 group sums, same split),
-    ragged tail included, and f64-grade vs NumPy."""
-    from cvmatrix_tpu.ops.df64 import df_from_f64, df_to_f64
-    from cvmatrix_tpu.ops.precise import blocked_pair_contract, ozaki_contract
-
-    rng = np.random.default_rng(9)
-    n, ka, cb = 300, 640, 389  # 640 = 2x256 + ragged 128 tail
-    a = rng.standard_normal((n, ka)) * 10
-    b = rng.standard_normal((n, cb))
-    pair = blocked_pair_contract(jnp.asarray(a), jnp.asarray(b),
-                                 block_rows=256)
-    assert pair.shape == (2, ka, cb)
-    full = ozaki_contract(jnp.asarray(a), jnp.asarray(b))
-    hi, lo = df_from_f64(full)
-    np.testing.assert_array_equal(np.asarray(pair[0]), np.asarray(hi))
-    np.testing.assert_array_equal(np.asarray(pair[1]), np.asarray(lo))
-    ref = a.T @ b
-    got = np.asarray(df_to_f64(pair[0], pair[1]))
-    assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) < 1e-13

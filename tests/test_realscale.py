@@ -6,7 +6,7 @@ The reference runs its entire equivalence suite on a 26617x102 NIR dataset
 26617x102x10 NIR-like synthetic (same structure: absorbance spectra,
 10 targets, 3 unequal natural folds — see ``tests/data.py``) and a K=500
 LOOCV slice, so K >= 100 shapes are covered by the correctness suite on CPU,
-not just by the TPU benchmarks.
+not just by the benchmarks.
 """
 
 from itertools import product
